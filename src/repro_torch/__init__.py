@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of ``repro``: dense transformer serving on one NVIDIA H100.
+"""PyTorch/CUDA port of ``repro``: dense transformer and Mamba2 serving on one
+NVIDIA H100.
 
 The port keeps the module names of the JAX package so each file has an
 obvious counterpart, imports ``torch`` and numpy only, and never imports

@@ -80,6 +80,9 @@ def library() -> ctypes.CDLL:
     lib.flash_attention_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                         i32, i32, ctypes.c_float, i32, ptr]
     lib.flash_attention_fwd.restype = i32
+    lib.ssd_scan_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                 i32, i32, i32, i32, ptr]
+    lib.ssd_scan_fwd.restype = i32
     lib.kernels_error_string.argtypes = [i32]
     lib.kernels_error_string.restype = ctypes.c_char_p
     return lib

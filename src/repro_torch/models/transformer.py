@@ -8,63 +8,43 @@ non-RoPE positions) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .attention import IMPLS, attention, decode_attention, init_kv_cache
-from .layers import Params, dtype_of, embed, mlp, rms_norm, unembed
+from .layers import (Params, Spec, dtype_of, embed, embedding_specs,
+                     init_from_specs, layer_params, mlp, rms_norm, unembed)
 
-__all__ = ["TransformerLM", "layer_params", "param_specs", "map_params"]
+__all__ = ["TransformerLM", "param_specs"]
 
 
 def param_specs(cfg: ModelConfig) -> Any:
-    """The param tree for ``cfg``: each leaf is ``(shape, init std)``.
+    """The param tree for ``cfg``, one :class:`Spec` a leaf.
 
     The structure, shapes and scales are the reference's; a std of 0 marks
     a zero-initialised norm scale (``(1 + scale)`` gain).
     """
-    L, d, h, hk, hd, ff, V = (cfg.n_layers, cfg.d_model, cfg.n_heads_padded,
-                              cfg.n_kv_heads, cfg.hd, cfg.d_ff,
-                              cfg.vocab_padded)
-    attn = {"wq": ((L, d, h, hd), d ** -0.5), "wk": ((L, d, hk, hd), d ** -0.5),
-            "wv": ((L, d, hk, hd), d ** -0.5),
-            "wo": ((L, h, hd, d), (h * hd) ** -0.5)}
+    L, d, h, hk, hd, ff = (cfg.n_layers, cfg.d_model, cfg.n_heads_padded,
+                           cfg.n_kv_heads, cfg.hd, cfg.d_ff)
+    attn = {"wq": Spec((L, d, h, hd), d ** -0.5),
+            "wk": Spec((L, d, hk, hd), d ** -0.5),
+            "wv": Spec((L, d, hk, hd), d ** -0.5),
+            "wo": Spec((L, h, hd, d), (h * hd) ** -0.5)}
     if cfg.qk_norm:
-        attn["q_norm"] = {"scale": ((L, hd), 0.0)}
-        attn["k_norm"] = {"scale": ((L, hd), 0.0)}
-    emb = {"embed": ((V, d), d ** -0.5)}
-    if not cfg.tie_embeddings:
-        emb["unembed"] = ((d, V), d ** -0.5)
+        attn["q_norm"] = {"scale": Spec((L, hd), 0.0)}
+        attn["k_norm"] = {"scale": Spec((L, hd), 0.0)}
     return {
-        "emb": emb,
-        "layers": {"ln1": {"scale": ((L, d), 0.0)}, "attn": attn,
-                   "ln2": {"scale": ((L, d), 0.0)},
-                   "mlp": {"w_gate": ((L, d, ff), d ** -0.5),
-                           "w_up": ((L, d, ff), d ** -0.5),
-                           "w_down": ((L, ff, d), ff ** -0.5)}},
-        "final_norm": {"scale": ((d,), 0.0)},
+        "emb": embedding_specs(cfg),
+        "layers": {"ln1": {"scale": Spec((L, d), 0.0)}, "attn": attn,
+                   "ln2": {"scale": Spec((L, d), 0.0)},
+                   "mlp": {"w_gate": Spec((L, d, ff), d ** -0.5),
+                           "w_up": Spec((L, d, ff), d ** -0.5),
+                           "w_down": Spec((L, ff, d), ff ** -0.5)}},
+        "final_norm": {"scale": Spec((d,), 0.0)},
     }
-
-
-def map_params(fn: Callable[..., Any], tree: Any, *others: Any) -> Any:
-    """Apply ``fn`` leafwise over nested dicts of the same structure."""
-    if isinstance(tree, dict):
-        for o in others:
-            if not isinstance(o, dict) or set(o) != set(tree):
-                raise ValueError(f"param tree keys differ: {sorted(tree)} "
-                                 f"vs {sorted(o) if isinstance(o, dict) else o}")
-        return {k: map_params(fn, tree[k], *(o[k] for o in others))
-                for k in tree}
-    return fn(tree, *others)
-
-
-def layer_params(layers: Params, i: int) -> Params:
-    """Layer ``i``'s parameters: views into the stacked [L, ...] tensors."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in layers.items()}
 
 
 def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -109,23 +89,9 @@ class TransformerLM:
 
     # ---- params ----------------------------------------------------------
     def init_params(self, seed: int = 0) -> Params:
-        """Seeded random weights, drawn on the model's device in its type.
-
-        The numbers differ from the reference's ``init_params`` (another
-        generator); the shapes and scales are the same.
-        """
-        dtype = dtype_of(self.cfg)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-
-        def draw(spec):
-            shape, std = spec
-            if std == 0.0:
-                return torch.zeros(shape, dtype=dtype, device=self.device)
-            x = torch.randn(shape, generator=gen, device=self.device,
-                            dtype=torch.float32)
-            return x.mul_(std).to(dtype)
-
-        return map_params(draw, param_specs(self.cfg))
+        """Seeded random weights, drawn on the model's device in its type."""
+        return init_from_specs(param_specs(self.cfg), dtype_of(self.cfg),
+                               self.device, seed)
 
     # ---- forward ---------------------------------------------------------
     def hidden_states(self, params: Params, tokens: torch.Tensor

@@ -43,7 +43,8 @@ def _greedy(logits: torch.Tensor) -> torch.Tensor:
 
 
 class Server:
-    """Static-batch greedy server on the flash-attention route.
+    """Static-batch greedy server on the kernel route (``impl="cuda"``) of
+    the config's family: dense transformer or Mamba2.
 
     ``params`` defaults to the model's seeded init (``seed``); pass a param
     tree to serve given weights (e.g. the reference's, via

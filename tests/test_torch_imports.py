@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from repro_torch.configs import SMOKE_ARCHS
-from repro_torch.models import TransformerLM
+from repro_torch.models import MambaLM, TransformerLM
 from repro_torch.runtime.server import Server
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -58,6 +58,12 @@ def test_no_cuda_without_explicit_cpu_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TransformerLM(cfg, device="cuda")
     assert TransformerLM(cfg, device="cpu").device.type == "cpu"
+    ssm = SMOKE_ARCHS["mamba2-780m"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MambaLM(ssm)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Server(ssm, batch_size=1, max_seq=8)
+    assert MambaLM(ssm, device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

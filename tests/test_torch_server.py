@@ -1,7 +1,8 @@
 """The port's one-shot ``Server.serve`` against the JAX reference's.
 
-Both servers run gemma-smoke on the same weights (the reference's, carried
-over by ``params_from_jax``) with ragged, left-padded prompts.  Tokens, the
+Both servers run gemma-smoke, and mamba2-smoke, on the same weights (the
+reference's, carried over by ``params_from_jax``) with ragged, left-padded
+prompts.  Tokens, the
 metrics' counts and every dispatch's name and payload bytes must be equal.
 """
 import json
@@ -35,13 +36,14 @@ def dispatches(session):
     return [(e.name, e.payload_bytes) for e in session.timeline(kinds="dispatch")]
 
 
+@pytest.mark.parametrize("arch", ["gemma-2b", "mamba2-780m"])
 @pytest.mark.parametrize("T", [1, 3, 4])
-def test_serve_matches_reference(T):
-    ref = RefServer(REF_SMOKE["gemma-2b"], batch_size=4, max_seq=MAX_SEQ,
+def test_serve_matches_reference(T, arch):
+    ref = RefServer(REF_SMOKE[arch], batch_size=4, max_seq=MAX_SEQ,
                     tokens_per_launch=T, seed=0)
     params = params_from_jax(jax.tree_util.tree_map(np.asarray, ref.params),
-                             SMOKE_ARCHS["gemma-2b"], "cpu")
-    srv = Server(SMOKE_ARCHS["gemma-2b"], batch_size=4, max_seq=MAX_SEQ,
+                             SMOKE_ARCHS[arch], "cpu")
+    srv = Server(SMOKE_ARCHS[arch], batch_size=4, max_seq=MAX_SEQ,
                  tokens_per_launch=T, device="cpu", params=params)
     ref_reqs = [RefRequest(i, p, m) for i, (p, m) in
                 enumerate(zip(prompts(), MAX_NEW))]
