@@ -14,6 +14,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    3e-5 / 3e-2, SSD scan 1e-3 / 6e-2; ``tests/test_kernels.py``), at the
    paths' shapes and at ragged ones;
 
+then the paper's DMA case study (section 6.2):
+
+D1. host->device transfers: ``sweep_transfer`` over the sizes of
+    ``benchmarks/bench_dma.py`` (4 B-16 KiB by powers of two, 1-31 KiB by
+    3 KiB; 32 KiB-32 MiB for direct only) for the inline protocol (payload
+    carried in kernel parameters, one CUDA-graph replay a put) and the direct
+    one (pageable ``cudaMemcpy``): every put round-trips exactly and lands
+    one ``transfer`` event; latency and GiB/s per size (Figure 6), and
+    whether the direct path shows a knee at 24 KiB; then ``HybridMover()``
+    over the same sizes, inline below 24 KiB and direct above;
+D2. the two DMA-copy kernels (pipelined, explicit TMA) held byte for byte
+    against the plain tiled copy at the reference's test shapes (f32, bf16,
+    int8), at tiles whose offsets are not multiples of 16, and at the path
+    shape, [32768, 4096] bf16 (256 MiB); then the path: each copy at
+    block_rows 8, 32, 128 and 256 bracketed by ``ProgressTracker`` releases
+    on one session (counts zeroed just before, read just after), and the
+    brackets held against torch.profiler's device time;
+
 then, for each serving path, gemma-2b (dense, flash attention) and
 mamba2-780m (SSD scan), both at full published width:
 
@@ -31,7 +49,8 @@ mamba2-780m (SSD scan), both at full published width:
 7. time the path (prefill, decode, tokens/s, device time by kernel);
 
 and last, time each kernel at its path's shape beside its bound, its plain
-version and one library call where there is one.
+version and one library call where there is one (the DMA-copy kernels are
+timed in D2).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -57,7 +76,12 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import ARCHS, ModelConfig  # noqa: E402
+from repro_torch.core import (H100_SXM, INLINE_THRESHOLD_DEFAULT,  # noqa: E402
+                              HybridMover, TraceSession, direct_put,
+                              inline_put, sweep_transfer)
 from repro_torch.kernels import _build, launches, reset_launches  # noqa: E402
+from repro_torch.kernels.dma_copy.ops import MODES, dma_copy  # noqa: E402
+from repro_torch.kernels.dma_copy.ref import dma_copy_tiled  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.rms_norm.ops import rms_norm  # noqa: E402
@@ -68,9 +92,6 @@ from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import mamba as mamba_block_module  # noqa: E402
 from repro_torch.runtime.server import Request, Server  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {"rms_norm": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
        "flash_attention": {torch.float32: 3e-5, torch.bfloat16: 3e-2},
        "ssd_scan": {torch.float32: 1e-3, torch.bfloat16: 6e-2}}
@@ -113,6 +134,30 @@ MAMBA = ServePath("mamba2-780m", (257, 512, 800, 1024), 1056,
                   control={"ssm_chunk": 128})
 CONTROL_FACTOR = 3.0
 PATHS = (GEMMA, MAMBA)
+
+# D1: benchmarks/bench_dma.py's sizes (Figure 6; Table 2's right half)
+EXP_SIZES = [4 * 2**i for i in range(13)]               # 4 B .. 16 KiB
+LIN_SIZES = [1024 * i for i in range(1, 32, 3)]         # 1 KiB .. 31 KiB
+LARGE_SIZES = [32 * 1024, 128 * 1024, 512 * 1024, 2 * 2**20, 8 * 2**20,
+               32 * 2**20]
+TRANSFER_ITERS, TRANSFER_WARMUP = 20, 5
+# D2: (R, C, block_rows, dtype): tests/test_kernels.py's shapes and types,
+# then tiles whose offsets are not multiples of 16 bytes (int8 [99, 37] in
+# tiles of 3 rows, 111 bytes; bf16 [60, 7] in tiles of 4 rows, 56 bytes) and
+# int8 [96, 33] in tiles of 32 rows (1056 bytes, aligned)
+COPY_CASES = [(R, C, blk, dt) for R, C, blk in ((256, 64, 64), (1024, 128, 256),
+                                                (128, 32, 128))
+              for dt in (torch.float32, torch.bfloat16, torch.int8)] + [
+    (96, 33, 32, torch.int8), (99, 37, 3, torch.int8), (60, 7, 4, torch.bfloat16)]
+DMA_SHAPE = (32768, 4096)            # bf16: 256 MiB
+DMA_DTYPE = torch.bfloat16
+DMA_BLOCK_ROWS = 256                 # the reference's default
+DMA_TILES = (8, 32, 128, 256)
+DMA_REPS = 20
+# a ProgressTracker bracket spans everything the stream runs between two
+# releases (the copies, the gaps between their launches, the second fence's
+# small kernels); torch.profiler sums the copy kernels alone
+BRACKET_TOL = 0.15
 
 
 def log(msg: str) -> None:
@@ -238,6 +283,180 @@ def check_kernels(device: torch.device) -> None:
                 f"{ref.float().abs().max().item():.2f}")
     if device.type == "cuda":
         torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------- DMA path
+def random_bytes(n: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256, size=n, dtype=np.uint8)
+
+
+def direct_knee(rows: List[Dict[str, float]]) -> Dict[str, Any]:
+    """The direct path's latency step across 24 KiB (22 -> 25 KiB) against
+    the median of its other 3 KiB steps; a knee shows if it is more than 3x
+    that median and more than 1 us."""
+    by_size = {r["nbytes"]: r["latency_us"] for r in rows}
+    lat = [by_size[n] for n in LIN_SIZES]
+    steps = [b - a for a, b in zip(lat, lat[1:])]
+    at = steps.pop(next(i for i, n in enumerate(LIN_SIZES)
+                        if n >= INLINE_THRESHOLD_DEFAULT) - 1)
+    med = sorted(map(abs, steps))[len(steps) // 2]
+    return {"step_us": at, "median_step_us": med,
+            "knee": at > max(3 * med, 1.0)}
+
+
+def transfers(card: str, device: torch.device) -> None:
+    """D1.  Every put goes through one session."""
+    sizes = {"inline": EXP_SIZES + LIN_SIZES,
+             "direct": EXP_SIZES + LIN_SIZES + LARGE_SIZES}
+    sweeps: Dict[str, Any] = {}
+    puts = 0
+    reset_launches()
+    with TraceSession("dma.transfers") as sess:
+        for mode, put in (("inline", inline_put), ("direct", direct_put)):
+            for n in sizes[mode]:
+                x = random_bytes(n, seed=n)
+                y, rec = put(x, device)
+                puts += 1
+                if (rec.mode != mode or rec.nbytes != n
+                        or not torch.equal(y.cpu(), torch.from_numpy(x))):
+                    raise AssertionError(f"{mode}_put of {n} B did not "
+                                         f"round-trip")
+            rows = sweep_transfer(sizes[mode], mode, iters=TRANSFER_ITERS,
+                                  warmup=TRANSFER_WARMUP, device=device)
+            puts += len(rows) * (TRANSFER_ITERS + TRANSFER_WARMUP)
+            for r in rows:
+                log(f"{card} | {mode}_put {r['nbytes']:>8d} B: median "
+                    f"{r['latency_us']:9.3f} us, {r['bandwidth_gib_s']:9.4f} "
+                    f"GiB/s")
+            sweeps[mode] = rows
+        mover = HybridMover(device=device)
+        want = []
+        for n in sizes["direct"]:
+            x = random_bytes(n, seed=n + 1)
+            y, rec = mover.put(x)
+            puts += 1
+            want.append("inline" if n < INLINE_THRESHOLD_DEFAULT else "direct")
+            if rec.mode != want[-1] or not torch.equal(y.cpu(),
+                                                       torch.from_numpy(x)):
+                raise AssertionError(f"HybridMover put of {n} B: mode "
+                                     f"{rec.mode}, expected {want[-1]}, or "
+                                     f"no round trip")
+        stats = mover.stats()
+        if stats != {m: want.count(m) for m in ("inline", "direct")}:
+            raise AssertionError(f"HybridMover stats {stats} disagree with "
+                                 f"its puts {want}")
+        events = sess.summary()["by_kind"].get("transfer", 0)
+    if events != puts:
+        raise AssertionError(f"{puts} puts landed {events} transfer events")
+    if device.type == "cuda" and launches["inline_put"] < 1:
+        raise AssertionError("the inline materializer was not launched")
+    knee = direct_knee(sweeps["direct"])
+    log(f"{card} | direct latency step 22 -> 25 KiB {knee['step_us']:.3f} us "
+        f"against a median 3 KiB step of {knee['median_step_us']:.3f} us: "
+        f"knee at 24 KiB {'shows' if knee['knee'] else 'does not show'}")
+    log(f"D1: {puts} puts, {events} transfer events, {launches['inline_put']}"
+        f" inline graph replays; HybridMover {stats}")
+
+
+def copy_input(R: int, C: int, dtype: torch.dtype, device: torch.device,
+               seed: int = 0) -> torch.Tensor:
+    g = torch.Generator(device=device).manual_seed(seed)
+    if dtype == torch.int8:
+        return torch.randint(-128, 128, (R, C), generator=g, device=device,
+                             dtype=torch.int8)
+    return torch.randn(R, C, generator=g, device=device).to(dtype)
+
+
+def same_bytes(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.uint8),
+                                              b.view(torch.uint8))
+
+
+def copy_checks(device: torch.device) -> None:
+    """D2: both kernels byte for byte against the plain tiled copy."""
+    cases = COPY_CASES + [(*DMA_SHAPE, blk, DMA_DTYPE) for blk in DMA_TILES]
+    for R, C, blk, dtype in cases:
+        x = copy_input(R, C, dtype, device)
+        ref = dma_copy_tiled(x, min(blk, R))
+        if not same_bytes(ref, x):
+            raise AssertionError("the plain tiled copy is not the identity")
+        for mode in MODES:
+            if not same_bytes(dma_copy(x, mode, blk), ref):
+                raise AssertionError(f"dma_copy {mode} [{R}, {C}] {dtype} "
+                                     f"block_rows={blk} differs from the "
+                                     f"plain copy")
+        log(f"dma_copy [{R}, {C}] {dtype} block_rows={blk}: both modes equal "
+            f"the plain tiled copy, byte for byte")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def copy_path(card: str, device: torch.device) -> List[Dict[str, Any]]:
+    """D2's path: the controlled-DMA benchmark on one session, then the
+    kernels' entries at the path shape."""
+    R, C = DMA_SHAPE
+    x = copy_input(R, C, DMA_DTYPE, device, seed=1)
+    nbytes = 2 * x.numel() * x.element_size()
+    bracket: Dict[Tuple[str, int], float] = {}
+    reset_launches()
+    with TraceSession("dma.copy") as sess:
+        for blk in DMA_TILES:
+            for mode in MODES:
+                y = dma_copy(x, mode, blk)              # warm-up
+                a = sess.progress.release(y)
+                for _ in range(DMA_REPS):
+                    y = dma_copy(x, mode, blk)
+                b = sess.progress.release(y)
+                bracket[mode, blk] = sess.progress.elapsed(a, b) / DMA_REPS * 1e3
+                if not same_bytes(y, x):
+                    raise AssertionError(f"dma_copy {mode} block_rows={blk}: "
+                                         f"the path's copy differs from x")
+    counts = {m: launches[f"dma_copy_{m}"] for m in MODES}
+    want = len(DMA_TILES) * (DMA_REPS + 1) if device.type == "cuda" else 0
+    if any(c != want for c in counts.values()):
+        raise AssertionError(f"dma_copy launches {counts} in the path, "
+                             f"expected {want} each")
+    bound = roofline(nbytes, 0)
+    prof = {}
+    for blk in DMA_TILES:
+        for mode in MODES:
+            prof[mode, blk] = ms = device_ms(lambda: dma_copy(x, mode, blk))
+            br = bracket[mode, blk]
+            log(f"{card} | dma_copy_{mode} [{R}, {C}] bf16 block_rows={blk}: "
+                f"{ms:.5f} ms (profiler), {br:.5f} ms (semaphore bracket), "
+                f"{bound['bound_ms'] / ms:.1%} of the {bound['bound_ms']:.5f} "
+                f"ms bound, {nbytes / ms / 1e6:.1f} GB/s read+written")
+            if abs(br - ms) > BRACKET_TOL * ms:
+                raise AssertionError(f"semaphore bracket {br:.5f} ms and "
+                                     f"profiler {ms:.5f} ms disagree by more "
+                                     f"than {BRACKET_TOL:.0%}")
+    plain_ms = device_ms(lambda: dma_copy_tiled(x, DMA_BLOCK_ROWS), reps=5)
+    library_ms = device_ms(lambda: torch.empty_like(x).copy_(x))
+    log(f"{card} | plain tiled copy (block_rows={DMA_BLOCK_ROWS}) "
+        f"{plain_ms:.5f} ms; torch.empty_like(x).copy_(x) {library_ms:.5f} ms")
+    entries = []
+    for mode, line in (("pipelined", 36), ("explicit", 64)):
+        out = dma_copy(x, mode, DMA_BLOCK_ROWS)
+        entries.append({
+            "name": f"dma_copy_{mode}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/dma_copy.cu",
+            "replaces": f"src/repro/kernels/dma_copy/kernel.py:{line}",
+            "max_abs_err": max_err(out, dma_copy_tiled(x, DMA_BLOCK_ROWS)),
+            "ms": prof[mode, DMA_BLOCK_ROWS],
+            "plain_ms": plain_ms,
+            "call_ms": time_ms(lambda: dma_copy(x, mode, DMA_BLOCK_ROWS)),
+            **bound,
+            "library_ms": library_ms,
+            "shape": f"R={R} C={C} bf16 block_rows={DMA_BLOCK_ROWS}",
+            "bracket_ms": bracket[mode, DMA_BLOCK_ROWS],
+            "tiles_ms": {str(blk): prof[mode, blk] for blk in DMA_TILES},
+            "launches_by_path": {"dma": counts[mode]},
+            "launches": counts[mode]})
+        del out
+    del x, y
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return entries
 
 
 # ---------------------------------------------------------------- phase 5
@@ -475,8 +694,9 @@ def drive_path(path: ServePath, card: str, device: torch.device
 
 
 # ---------------------------------------------------------------- kernels
-def roofline(nbytes: int, flops: int, dtype: torch.dtype) -> Dict[str, Any]:
-    byte_s, flop_s = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+def roofline(nbytes: int, flops: int) -> Dict[str, Any]:
+    """Bound of bf16 work on one H100 SXM (NVIDIA's published peaks)."""
+    byte_s, flop_s = nbytes / H100_SXM.hbm_bw, flops / H100_SXM.peak_flops
     return {"bound_ms": max(byte_s, flop_s) * 1e3,
             "bound_by": "bytes" if byte_s >= flop_s else "operations"}
 
@@ -498,7 +718,7 @@ def rms_entry(device: torch.device) -> Dict[str, Any]:
             "ms": device_ms(lambda: rms_norm(x, s)),
             "plain_ms": device_ms(lambda: rms_norm_ref(x, s)),
             "call_ms": time_ms(lambda: rms_norm(x, s), reps=100),
-            **roofline(2 * rows * D * item + D * item, 0, dtype),
+            **roofline(2 * rows * D * item + D * item, 0),
             "library_ms": library_ms,
             "shape": f"rows={rows} D={D} bf16 (gemma-2b prefill)"}
 
@@ -523,7 +743,7 @@ def flash_entry(device: torch.device) -> Dict[str, Any]:
             "ms": device_ms(lambda: flash_attention(q, k, v)),
             "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v)),
             "call_ms": time_ms(lambda: flash_attention(q, k, v), reps=50),
-            **roofline(nbytes, flops, dtype),
+            **roofline(nbytes, flops),
             "library_ms": library_ms,
             "shape": f"B={B} S={S} H={H} Hkv={Hkv} hd={hd} causal bf16"}
 
@@ -551,7 +771,7 @@ def ssd_entry(device: torch.device) -> Dict[str, Any]:
             "ms": device_ms(lambda: ssd_scan(*args, chunk=Q)),
             "plain_ms": device_ms(lambda: ssd_chunked(*args, chunk=Q), reps=5),
             "call_ms": time_ms(lambda: ssd_scan(*args, chunk=Q), reps=20),
-            **roofline(nbytes, flops, dtype),
+            **roofline(nbytes, flops),
             "library_ms": None,    # no single PyTorch call computes SSD
             "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={Q} bf16"}
 
@@ -572,6 +792,11 @@ def main() -> int:
     build_kernels()
     log("phase 3: kernels against their plain versions")
     check_kernels(device)
+    log("phase D1: host->device transfers, inline vs direct")
+    transfers(card, device)
+    log("phase D2: the DMA-copy kernels against the plain tiled copy")
+    copy_checks(device)
+    dma_kernels = copy_path(card, device)
 
     counts = {path.arch: drive_path(path, card, device) for path in PATHS}
 
@@ -588,6 +813,7 @@ def main() -> int:
             f"{e['bound_ms']:.5f} ms ({e['bound_by']}), plain "
             f"{e['plain_ms']:.5f} ms, library {e['library_ms']}, launches "
             f"{e['launches_by_path']}")
+    kernels += dma_kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 
 This is the port's copy of ``repro.core.session``.  The event schema
 (:class:`TraceEvent`, span stamps, ``obs.span``/``obs.barrier`` names) is
-unchanged, so the reference's ``repro.obs`` tools read the port's JSONL.  Of
-the bound subsystem facades only the doorbell tracker is ported; the
-capture, transfer and progress facades arrive with the paper's instruments.
+unchanged, so the reference's ``repro.obs`` tools read the port's JSONL.  The
+bound doorbell, transfer and progress facades are ported (``sess.doorbell``,
+``sess.mover``, ``sess.progress``, ``sess.wrap``, ``sess.put``); the capture
+facade (``lower_and_compile``) waits for the port of ``capture.py``.
 
 The paper's methodological core is a *single, complete* observation point —
 the doorbell watchpoint — through which every submission passes exactly once.
@@ -448,10 +449,15 @@ class TraceSession:
             self.sinks.extend(sinks)
         self._tokens: List[contextvars.Token] = []
 
-        # Bound doorbell facade.  Imported lazily to avoid an import cycle
-        # (doorbell.py imports this module).
+        # Bound subsystem facades — one session drives everything.  Imported
+        # lazily to avoid an import cycle (those modules import this one).
+        # None of them touches the device before its first use.
+        from .dma import HybridMover
         from .doorbell import DoorbellTracker
+        from .semaphore import ProgressTracker
         self.doorbell = DoorbellTracker(session=self)
+        self.mover = HybridMover(session=self)
+        self.progress = ProgressTracker(session=self)
 
     # -- activation --------------------------------------------------------
     def __enter__(self) -> "TraceSession":
@@ -617,11 +623,15 @@ class TraceSession:
                          barrier=str(barrier_id),
                          wall=time.time() if wall is None else wall)
 
-    # -- convenience wrapper (delegates to the bound facade) ---------------
+    # -- convenience wrappers (delegate to bound facades) ------------------
     def wrap(self, fn: Callable, name: str = "dispatch",
              block: bool = False) -> Callable:
         """Doorbell-wrap a callable; each call lands a ``dispatch`` event."""
         return self.doorbell.wrap(fn, name=name, block=block)
+
+    def put(self, x: Any):
+        """Move data through the bound :class:`HybridMover`."""
+        return self.mover.put(x)
 
     # -- querying ----------------------------------------------------------
     @property

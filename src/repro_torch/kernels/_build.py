@@ -83,6 +83,14 @@ def library() -> ctypes.CDLL:
     lib.ssd_scan_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
                                  i32, i32, i32, i32, ptr]
     lib.ssd_scan_fwd.restype = i32
+    i64 = ctypes.c_longlong
+    for fn in (lib.dma_copy_pipelined, lib.dma_copy_explicit):
+        fn.argtypes = [ptr, ptr, i64, i64, i32, i32, ptr]
+        fn.restype = i32
+    lib.inline_put_prepare.argtypes = []
+    lib.inline_put_prepare.restype = i32
+    lib.inline_put_launch.argtypes = [ptr, i64, ptr, ptr]
+    lib.inline_put_launch.restype = i32
     lib.kernels_error_string.argtypes = [i32]
     lib.kernels_error_string.restype = ctypes.c_char_p
     return lib

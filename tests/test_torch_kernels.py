@@ -9,13 +9,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.dma_copy.ops import dma_copy as jax_dma_copy
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_flash_ref
 from repro.kernels.rms_norm.ops import rms_norm_fused
 from repro.kernels.rms_norm.ref import rms_norm_ref as jax_rms_ref
 from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_pallas
 from repro.models.attention import dense_causal_attention as jax_dense
 from repro.models.mamba import ssd_chunked as jax_ssd_chunked
+from repro_torch.core.dma import inline_put
 from repro_torch.kernels import launches, reset_launches
+from repro_torch.kernels.dma_copy.ops import dma_copy
+from repro_torch.kernels.dma_copy.ref import dma_copy_ref, dma_copy_tiled
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rms_norm.ops import rms_norm
@@ -126,6 +130,65 @@ def test_ssd_plain_matches_reference_and_pallas(B, S, H, P, N, chunk, dtype):
     assert torch.equal(y_wrap, y)
 
 
+# ---------------------------------------------------------------- dma_copy
+DMA_DTYPES = {"float32": (torch.float32, jnp.float32),
+              "bfloat16": (torch.bfloat16, jnp.bfloat16),
+              "int8": (torch.int8, jnp.int8)}
+
+
+def dma_both(R, C, dtype, seed=0):
+    """The same integer values (exact in every type) as torch and jax."""
+    a = np.random.default_rng(seed).integers(-100, 100, size=(R, C))
+    tdt, jdt = DMA_DTYPES[dtype]
+    return torch.from_numpy(a).to(tdt), jnp.asarray(a, jdt)
+
+
+# tests/test_kernels.py's shapes, in every type it covers
+@pytest.mark.parametrize("mode", ["pipelined", "explicit"])
+@pytest.mark.parametrize("R,C,blk", [(256, 64, 64), (1024, 128, 256),
+                                     (128, 32, 128)])
+@pytest.mark.parametrize("dtype", sorted(DMA_DTYPES))
+def test_dma_copy_matches_pallas_exactly(mode, R, C, blk, dtype):
+    x, xj = dma_both(R, C, dtype)
+    out = dma_copy(x, mode=mode, block_rows=blk)
+    ref = jax_dma_copy(xj, mode=mode, block_rows=blk)    # interpret mode
+    assert out.dtype == x.dtype and out.shape == x.shape
+    assert out.data_ptr() != x.data_ptr()
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
+    assert torch.equal(out, dma_copy_ref(x))
+
+
+@pytest.mark.parametrize("R,C,blk", [(96, 33, 32), (99, 37, 3), (8, 5, 256)])
+def test_dma_copy_tiled_ragged_tiles(R, C, blk):
+    """Tiles whose byte offsets are not multiples of 16; block_rows above R
+    is cut to R."""
+    x, _ = dma_both(R, C, "int8", seed=1)
+    for mode in ("pipelined", "explicit"):
+        assert torch.equal(dma_copy(x, mode, blk), x)
+    assert torch.equal(dma_copy_tiled(x, min(blk, R)), x)
+
+
+@pytest.mark.parametrize("case", ["ragged_rows", "rank1", "rank3",
+                                  "non_contiguous", "mode", "empty"])
+def test_dma_copy_wrapper_rejects(case):
+    x, blk, mode = torch.ones(64, 8), 16, "pipelined"
+    if case == "ragged_rows":
+        x = torch.ones(60, 8)          # 60 % 16 != 0: the reference asserts
+    elif case == "rank1":
+        x = torch.ones(64)
+    elif case == "rank3":
+        x = torch.ones(4, 16, 8)
+    elif case == "non_contiguous":
+        x = torch.ones(8, 64).T
+    elif case == "mode":
+        mode = "automatic"
+    else:
+        x = torch.ones(0, 8)
+    with pytest.raises(ValueError):
+        dma_copy(x, mode, blk)
+
+
 # ---------------------------------------------------------------- wrappers
 def test_cpu_tensors_take_plain_version_and_count_nothing():
     reset_launches()
@@ -141,6 +204,14 @@ def test_cpu_tensors_take_plain_version_and_count_nothing():
                        ssd_chunked(*ssd_args, chunk=8)[0])
     assert (launches["rms_norm"] == 0 and launches["flash_attention"] == 0
             and launches["ssd_scan"] == 0)
+
+
+def test_cpu_dma_copies_count_nothing():
+    reset_launches()
+    x = torch.arange(96, dtype=torch.int8).reshape(12, 8)
+    for mode in ("pipelined", "explicit"):
+        assert torch.equal(dma_copy(x, mode, 4), x)
+    assert not any(launches.values())
 
 
 @pytest.mark.parametrize("case", ["scale_shape", "int_dtype", "mixed_dtype",
@@ -254,3 +325,35 @@ def test_ssd_scan_kernel_on_card(B, S, H, P, N, chunk, dtype):
     assert none is None and launches["ssd_scan"] == before + 1
     ref, _ = ssd_chunked(*args, chunk=min(chunk, S))
     close(y.cpu(), ref.float().cpu().numpy(), SSD_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["pipelined", "explicit"])
+@pytest.mark.parametrize("R,C,blk,dtype", [
+    (1024, 128, 256, "float32"), (256, 64, 64, "bfloat16"),
+    (128, 32, 128, "int8"), (96, 33, 32, "int8"), (99, 37, 3, "int8"),
+    (4096, 4096, 256, "bfloat16")])
+def test_dma_copy_kernel_on_card(mode, R, C, blk, dtype):
+    """Byte-exact, with tiles larger than one 64 KiB TMA piece and tiles at
+    offsets that are not multiples of 16 bytes."""
+    _need_card()
+    x = dma_both(R, C, dtype, seed=3)[0].to("cuda")
+    before = launches[f"dma_copy_{mode}"]
+    out = dma_copy(x, mode, blk)
+    torch.cuda.synchronize()
+    assert launches[f"dma_copy_{mode}"] == before + 1
+    assert torch.equal(out.view(torch.uint8), x.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 17, 256, 4000, 24 * 1024 - 1, 100_000])
+def test_inline_put_kernel_on_card(n):
+    """The payload rides in kernel parameters: one graph replay a put, split
+    across launches above one parameter block."""
+    _need_card()
+    x = np.random.default_rng(n).integers(0, 256, size=n, dtype=np.uint8)
+    before = launches["inline_put"]
+    y, rec = inline_put(x, device="cuda", _cache=False)
+    assert rec.mode == "inline" and rec.nbytes == n
+    assert launches["inline_put"] == before + 1
+    assert np.array_equal(y.cpu().numpy(), x)
