@@ -8,11 +8,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. print the card (``nvidia-smi --query-gpu=name,power.limit``) and the
    torch/CUDA versions;
 2. build the hand-written kernels (``src/repro_torch/kernels/csrc``) with
-   ``nvcc`` for ``sm_90a``;
+   ``nvcc`` for ``sm_90a``, one process per source, and print each kernel's
+   registers, static shared memory and spills from ``-Xptxas -v``;
 3. hold each kernel against its plain PyTorch version on the card, at the
    reference's tolerances (RMSNorm 2e-5 f32 / 2e-2 bf16, flash attention
    3e-5 / 3e-2, SSD scan 1e-3 / 6e-2; ``tests/test_kernels.py``), at the
-   paths' shapes and at ragged ones;
+   paths' shapes and at ragged ones (flash: S of 1, 17, 100 and 1000, which
+   are not multiples of the 16x8 fragments or the 64-key tiles, at hd 64,
+   128 and 256 and Hkv 1, 2 and 8);
 
 then the paper's DMA case study (section 6.2):
 
@@ -46,11 +49,14 @@ mamba2-780m (SSD scan), both at full published width:
    prefill's kernel (flash attention vs dense softmax; SSD kernel vs plain
    chunked scan); every norm goes through the RMSNorm kernel on both, which
    phase 3 holds against its plain version;
-7. time the path (prefill, decode, tokens/s, device time by kernel);
+7. time the path (prefill, decode, tokens/s, device time by kernel and the
+   path's kernels' share of it);
 
 and last, time each kernel at its path's shape beside its bound, its plain
 version and one library call where there is one (the DMA-copy kernels are
-timed in D2).
+timed in D2), and the flash kernel at B=1, S=4096 beside
+``scaled_dot_product_attention`` and its bound (one ``flash_attention
+long`` line).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -62,6 +68,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -144,16 +151,25 @@ TRANSFER_ITERS, TRANSFER_WARMUP = 20, 5
 # D2: (R, C, block_rows, dtype): tests/test_kernels.py's shapes and types,
 # then tiles whose offsets are not multiples of 16 bytes (int8 [99, 37] in
 # tiles of 3 rows, 111 bytes; bf16 [60, 7] in tiles of 4 rows, 56 bytes) and
-# int8 [96, 33] in tiles of 32 rows (1056 bytes, aligned)
+# int8 [96, 33] in tiles of 32 rows (1056 bytes, aligned); then tiles of two
+# 32 KiB TMA pieces, fewer than the explicit kernel's ring of four (bf16
+# [40, 4104] in tiles of 5 rows, 41040 bytes), and tiles of eight pieces
+# with unaligned heads and tails, where the ring wraps (int8 [60, 40001] in
+# tiles of 6 rows, 240006 bytes)
 COPY_CASES = [(R, C, blk, dt) for R, C, blk in ((256, 64, 64), (1024, 128, 256),
                                                 (128, 32, 128))
               for dt in (torch.float32, torch.bfloat16, torch.int8)] + [
-    (96, 33, 32, torch.int8), (99, 37, 3, torch.int8), (60, 7, 4, torch.bfloat16)]
+    (96, 33, 32, torch.int8), (99, 37, 3, torch.int8), (60, 7, 4, torch.bfloat16),
+    (40, 4104, 5, torch.bfloat16), (60, 40001, 6, torch.int8)]
 DMA_SHAPE = (32768, 4096)            # bf16: 256 MiB
 DMA_DTYPE = torch.bfloat16
 DMA_BLOCK_ROWS = 256                 # the reference's default
 DMA_TILES = (8, 32, 128, 256)
 DMA_REPS = 20
+# copies queued before a bracket opens: while the card runs them the host
+# queues the bracketed ones, so a host stall just after the opening release
+# does not leave the card idle inside the bracket
+DMA_WARMUP = 3
 # a ProgressTracker bracket spans everything the stream runs between two
 # releases (the copies, the gaps between their launches, the second fence's
 # small kernels); torch.profiler sums the copy kernels alone
@@ -192,14 +208,67 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------- phase 2
-def build_kernels() -> None:
+# the kernels redesigned for Hopper after their first port (tensor cores; a
+# ring of TMA pieces), whose registers and spills go into the kernels line
+REDESIGNED = ("flash_attention_mma_kernel", "dma_copy_explicit_kernel")
+
+
+def kernel_label(mangled: str) -> str:
+    """``flash_attention_mma_kernel<256>`` from an Itanium-mangled name: the
+    first length-prefixed identifier ending in ``_kernel``, and its template
+    arguments (types and integers)."""
+    for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled):
+        n, ident = int(m.group(1)), m.group(2)
+        if len(ident) >= n and ident[:n].endswith("_kernel"):
+            args = re.match(r"I(.*?)EE", ident[n:])
+            if not args:
+                return ident[:n]
+            names = {"f": "float", "13__nv_bfloat16": "bf16"}
+            toks = re.findall(r"13__nv_bfloat16|Li\d+|f", args.group(1))
+            return ident[:n] + "<" + ", ".join(
+                names.get(t, t[2:]) for t in toks) + ">"
+    return mangled
+
+
+def ptxas_report(log_text: str) -> Dict[str, Dict[str, int]]:
+    """Registers, static shared memory and spill bytes of every kernel in an
+    ``-Xptxas -v`` log, by kernel label."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = kernel_label(m.group(1))
+            out[name] = {"registers": 0, "smem_static_bytes": 0,
+                         "spill_store_bytes": 0, "spill_load_bytes": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[name]["spill_store_bytes"] = int(m.group(1))
+            out[name]["spill_load_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem_static_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def build_kernels() -> Dict[str, Dict[str, int]]:
     t0 = time.perf_counter()
     lib = _build.build()
     _build.library()
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s: {lib}")
-    for line in lib.with_suffix(".so.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas: " + line.strip())
+    report = ptxas_report(lib.with_suffix(".so.log").read_text())
+    for name, r in sorted(report.items()):
+        mark = "  (redesigned)" if name.split("<")[0] in REDESIGNED else ""
+        log(f"  ptxas {name}: {r['registers']} registers, "
+            f"{r['smem_static_bytes']} B static smem, spills "
+            f"{r['spill_store_bytes']} B stored / {r['spill_load_bytes']} B "
+            f"loaded{mark}")
+    return report
 
 
 # ---------------------------------------------------------------- phase 3
@@ -250,6 +319,9 @@ def check_kernels(device: torch.device) -> None:
                 f"{max_err(out, ref):.3e} (tol {tol})")
     cases = [(S, Hkv, 256) for S in (255, 256, 1024) for Hkv in (1, 8)]
     cases += [(384, Hkv, hd) for hd in (64, 128) for Hkv in (1, 8)]
+    # lengths that cut a 16x8 fragment or a 64-key tile
+    cases += [(S, Hkv, hd) for S in (1, 17, 100, 1000) for hd in (64, 128, 256)
+              for Hkv in (1, 2, 8)]
     for S, Hkv, hd in cases:
         for causal in (True, False):
             for dtype in dtypes:
@@ -402,7 +474,8 @@ def copy_path(card: str, device: torch.device) -> List[Dict[str, Any]]:
     with TraceSession("dma.copy") as sess:
         for blk in DMA_TILES:
             for mode in MODES:
-                y = dma_copy(x, mode, blk)              # warm-up
+                for _ in range(DMA_WARMUP):
+                    y = dma_copy(x, mode, blk)
                 a = sess.progress.release(y)
                 for _ in range(DMA_REPS):
                     y = dma_copy(x, mode, blk)
@@ -412,7 +485,8 @@ def copy_path(card: str, device: torch.device) -> List[Dict[str, Any]]:
                     raise AssertionError(f"dma_copy {mode} block_rows={blk}: "
                                          f"the path's copy differs from x")
     counts = {m: launches[f"dma_copy_{m}"] for m in MODES}
-    want = len(DMA_TILES) * (DMA_REPS + 1) if device.type == "cuda" else 0
+    want = (len(DMA_TILES) * (DMA_REPS + DMA_WARMUP) if device.type == "cuda"
+            else 0)
     if any(c != want for c in counts.values()):
         raise AssertionError(f"dma_copy launches {counts} in the path, "
                              f"expected {want} each")
@@ -434,6 +508,11 @@ def copy_path(card: str, device: torch.device) -> List[Dict[str, Any]]:
     library_ms = device_ms(lambda: torch.empty_like(x).copy_(x))
     log(f"{card} | plain tiled copy (block_rows={DMA_BLOCK_ROWS}) "
         f"{plain_ms:.5f} ms; torch.empty_like(x).copy_(x) {library_ms:.5f} ms")
+    for mode in MODES:
+        ms = prof[mode, DMA_BLOCK_ROWS]
+        log(f"{card} | dma_copy_{mode} block_rows={DMA_BLOCK_ROWS} {ms:.5f} ms "
+            f"against copy_ {library_ms:.5f} ms ({ms / library_ms:.3f}x) and "
+            f"the bound {bound['bound_ms']:.5f} ms")
     entries = []
     for mode, line in (("pipelined", 36), ("explicit", 64)):
         out = dma_copy(x, mode, DMA_BLOCK_ROWS)
@@ -628,14 +707,21 @@ def device_ms(fn: Callable[[], Any], reps: int = 20) -> float:
     return sum(e.self_device_time_total for e in rows) / reps / 1e3
 
 
-def profile_window(fn: Callable[[], Any], label: str, top: int = 8) -> None:
-    """Device time by kernel over one call of ``fn``, and the device's busy
-    share of the window's wall time (one stream: kernels do not overlap)."""
+def profile_window(fn: Callable[[], Any], label: str, top: int = 8,
+                   kernels: Tuple[str, ...] = ()) -> None:
+    """Device time by kernel over one call of ``fn``, the device's busy share
+    of the window's wall time (one stream: kernels do not overlap), and the
+    share of device time taken by each kernel named in ``kernels``."""
     rows, wall_us = _profile(fn)
     busy_us = sum(e.self_device_time_total for e in rows)
     log(f"{label}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f}"
         f" ms ({busy_us / wall_us:.1%}), {sum(e.count for e in rows)} kernel "
         f"launches")
+    for name in kernels:
+        mine = [e for e in rows if name in e.key]
+        us = sum(e.self_device_time_total for e in mine)
+        log(f"  {name} kernel: {us / 1e3:.3f} ms in {sum(e.count for e in mine)}"
+            f" launches, {us / busy_us:.1%} of the device time")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
@@ -655,7 +741,7 @@ def time_path(path: ServePath, cfg: ModelConfig, params,
         step["state"], _ = model.decode_step(params, step["state"], nxt)
     decode_ms = time_ms(one_step, reps=16, warmup=2)
     profile_window(lambda: model.prefill(params, toks, path.max_seq),
-                   f"{cfg.name} prefill profile")
+                   f"{cfg.name} prefill profile", kernels=path.kernels)
     profile_window(one_step, f"{cfg.name} decode step profile")
     srv = Server(cfg, batch_size=len(path.prompt_lens), max_seq=path.max_seq,
                  tokens_per_launch=1, device=device, params=params)
@@ -748,6 +834,35 @@ def flash_entry(device: torch.device) -> Dict[str, Any]:
             "shape": f"B={B} S={S} H={H} Hkv={Hkv} hd={hd} causal bf16"}
 
 
+def flash_long(card: str, device: torch.device, S: int = 4096
+               ) -> Dict[str, Any]:
+    """The flash kernel where the work, not the bytes, bounds it: gemma-2b's
+    heads at S=4096, beside SDPA on the same inputs."""
+    cfg = ARCHS[GEMMA.arch]
+    B, H, Hkv, hd = 1, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = flash_inputs(B, S, H, Hkv, hd, torch.bfloat16, device, seed=2)
+    out, ref = flash_attention(q, k, v), flash_attention_ref(q, k, v)
+    tol = TOL["flash_attention"][torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    err = max_err(out, ref)
+    del out, ref
+    nbytes = (2 * B * S * H * hd + 2 * B * S * Hkv * hd) * q.element_size()
+    flops = 4 * B * H * hd * S * (S + 1) // 2
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    ms = device_ms(lambda: flash_attention(q, k, v))
+    bound = roofline(nbytes, flops)
+    log(f"{card} | flash_attention long B={B} S={S} H={H} Hkv={Hkv} hd={hd} "
+        f"causal bf16: kernel {ms:.5f} ms, scaled_dot_product_attention "
+        f"{sdpa_ms:.5f} ms, bound {bound['bound_ms']:.5f} ms "
+        f"({bound['bound_by']}, {flops / 1e9:.1f} GFLOP): kernel at "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {bound['bound_ms'] / ms:.1%} of the "
+        f"bound; max|err| {err:.3e} (tol {tol})")
+    return {"shape": f"B={B} S={S} H={H} Hkv={Hkv} hd={hd} causal bf16",
+            "ms": ms, "library_ms": sdpa_ms, "max_abs_err": err, **bound}
+
+
 def ssd_entry(device: torch.device) -> Dict[str, Any]:
     cfg = ARCHS[MAMBA.arch]
     B, S, H, P, N, Q = (len(MAMBA.prompt_lens), max(MAMBA.prompt_lens),
@@ -789,7 +904,7 @@ def main() -> int:
         f"{torch.cuda.device_count()}")
 
     log("phase 2: build kernels")
-    build_kernels()
+    ptxas = build_kernels()
     log("phase 3: kernels against their plain versions")
     check_kernels(device)
     log("phase D1: host->device transfers, inline vs direct")
@@ -802,6 +917,7 @@ def main() -> int:
 
     log("kernels at their paths' shapes")
     kernels = [rms_entry(device), flash_entry(device), ssd_entry(device)]
+    kernels[1]["long_s"] = flash_long(card, device)
     for e in kernels:
         # launches: the T=1 serves of every path that runs the kernel
         e["launches_by_path"] = {
@@ -814,6 +930,10 @@ def main() -> int:
             f"{e['plain_ms']:.5f} ms, library {e['library_ms']}, launches "
             f"{e['launches_by_path']}")
     kernels += dma_kernels
+    for e in kernels:
+        e["ptxas"] = {name: r for name, r in ptxas.items()
+                      if name.split("<")[0] in REDESIGNED
+                      and e["name"] in name}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

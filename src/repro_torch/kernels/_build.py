@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them through ctypes.
 
-Every ``csrc/*.cu`` file is compiled for ``sm_90a`` in one ``nvcc`` call into
-one shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds).  The library is named by a hash of the sources and flags and
+Every ``csrc/*.cu`` file is compiled for ``sm_90a`` by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds).  The library is named by a hash of the sources and flags and
 lives in ``build/kernels/`` at the root of the checkout, so the first call
 after a change to a source builds it and later calls load it.  A failed build
 raises: there is no other route to a kernel.
@@ -25,7 +26,7 @@ __all__ = ["BUILD_DIR", "build", "library", "check", "dtype_code", "stream_ptr"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -59,12 +60,27 @@ def build() -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".so.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    nvcc = _nvcc()
+    objs = [tmp.with_name(f"{tmp.name}.{p.stem}.o") for p in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+            for p, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+    if all(p.returncode == 0 for p in procs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        cmds.append(link)
+        outs.append(proc.stdout + proc.stderr)
+        failed = proc.returncode
+    else:
+        failed = next(p.returncode for p in procs if p.returncode)
+    lib.with_suffix(".so.log").write_text("".join(
+        " ".join(c) + "\n" + out for c, out in zip(cmds, outs)))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}):\n" + "".join(outs))
     os.replace(tmp, lib)        # atomic: a concurrent loader sees all or none
     return lib
 

@@ -19,14 +19,27 @@
 //     Streaming cache hints (__ldcs/__stcs) keep the once-used bytes from
 //     evicting others in L2.
 //   explicit — the paper's controlled DMA issuance: one elected thread writes
-//     the copy descriptors itself.  For each piece of at most 64 KiB of the
-//     tile it issues a bulk (TMA) copy global->shared completed on an mbarrier
-//     (copy_in.start/wait), then a bulk copy shared->global in a bulk group
-//     and waits for the group (copy_out.start/wait), in the reference's order:
-//     right first, not fast.  A tile larger than shared memory (2 MiB at
-//     block_rows 256 and C 4096 in bf16) goes in pieces, so one block needs
-//     64 KiB of dynamic shared memory at most; each launch raises the block's
-//     limit first and reports a refused launch through cudaGetLastError.
+//     the copy descriptors itself.  The tile goes in pieces of at most 32 KiB
+//     through a ring of 4 stages of dynamic shared memory (128 KiB), each
+//     stage with its own mbarrier and parity bit.  The thread first issues
+//     the bulk (TMA) loads global->shared of up to 4 pieces (copy_in.start,
+//     each completing on its stage's barrier).  Then for each piece i in
+//     order: it waits for piece i on its barrier (copy_in.wait), issues its
+//     store shared->global as one bulk group (copy_out.start), and refills
+//     the stage of piece i-1 with piece i+3 once that stage's store has read
+//     the buffer (cp.async.bulk.wait_group.read 1: only the store just
+//     issued may still be reading; no store's write is waited for).  So up
+//     to three loads are in flight beside one or two stores, and a block
+//     reads while it writes, where the first version ran load, wait, store,
+//     wait for the write, one 64 KiB piece at a time.  The thread waits for
+//     every write once, at the end of the tile (copy_out.wait).  A tile of
+//     fewer pieces than stages takes only the stages it needs (2 at
+//     block_rows 8 and C 4096 in bf16: 64 KiB, three blocks an SM as
+//     before).  Each launch raises the block's dynamic shared-memory limit
+//     first and reports a refused launch through cudaGetLastError.  On an
+//     H100 the ring leaves the time at block_rows 256 where the single piece
+//     had it, behind copy_ (PERF.md): the depth in flight was not what held
+//     it back.
 //   Bulk copies need 16-byte-aligned addresses and sizes.  A tile whose
 //   offset or size is not a multiple of 16 (int8 with an odd C, say) moves
 //   its unaligned head and tail with the block's threads, and a tile whose
@@ -40,7 +53,8 @@ namespace {
 constexpr int kPipelinedThreads = 512;
 constexpr int kUnroll = 4;                 // 16-byte loads in flight a thread
 constexpr int kExplicitThreads = 128;      // byte heads and tails only
-constexpr unsigned kPiece = 64 * 1024;     // bytes a bulk copy moves at most
+constexpr unsigned kPiece = 32 * 1024;     // bytes a bulk copy moves at most
+constexpr unsigned kStages = 4;            // pieces of the explicit kernel's ring
 
 __device__ __forceinline__ bool co_aligned(const unsigned char* s, const unsigned char* d) {
   return ((reinterpret_cast<uintptr_t>(s) ^ reinterpret_cast<uintptr_t>(d)) & 15) == 0;
@@ -92,11 +106,37 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+__device__ __forceinline__ void bulk_load(uint32_t buf, const unsigned char* g, uint32_t bytes,
+                                          uint32_t bar) {
+  // copy_in.start(): expect `bytes` on the stage's barrier, then issue the load
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(buf),
+      "l"(g), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_wait(uint32_t bar, uint32_t parity) {
+  // copy_in.wait(): the barrier's phase flips once all bytes have landed
+  uint32_t ready = 0;
+  while (!ready) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(ready)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
 __global__ void __launch_bounds__(kExplicitThreads)
     dma_copy_explicit_kernel(const unsigned char* __restrict__ src, unsigned char* __restrict__ dst,
                              size_t tile_bytes, unsigned piece) {
   extern __shared__ __align__(128) unsigned char buf[];
-  __shared__ __align__(8) uint64_t bar;
+  __shared__ __align__(8) uint64_t bar[kStages];
   const size_t off = (size_t)blockIdx.x * tile_bytes;
   const unsigned char* s = src + off;
   unsigned char* d = dst + off;
@@ -109,45 +149,44 @@ __global__ void __launch_bounds__(kExplicitThreads)
   copy_bytes(s, d, head + body, tile_bytes);
   if (body == 0 || threadIdx.x != 0) return;
 
-  const uint32_t bar_a = smem_addr(&bar), buf_a = smem_addr(buf);
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar_a), "r"(1u) : "memory");
-  // make the initialised barrier visible to the async (TMA) proxy
+  const size_t n = (body + piece - 1) / piece;            // pieces of this tile
+  const unsigned stages = n < kStages ? (unsigned)n : kStages;
+  const uint32_t buf_a = smem_addr(buf), bar_a = smem_addr(bar);
+  for (unsigned st = 0; st < stages; ++st)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar_a + 8 * st), "r"(1u)
+                 : "memory");
+  // make the initialised barriers visible to the async (TMA) proxy
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  uint32_t phase = 0;
-  for (size_t done = 0; done < body; done += piece) {
-    const uint32_t bytes = (uint32_t)(body - done < piece ? body - done : piece);
-    const unsigned char* gs = s + head + done;
-    unsigned char* gd = d + head + done;
-    // copy_in.start(): expect `bytes` on the barrier, then issue the load
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar_a),
-                 "r"(bytes)
-                 : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-            "r"(buf_a),
-        "l"(gs), "r"(bytes), "r"(bar_a)
-        : "memory");
-    // copy_in.wait(): the barrier's phase flips once all bytes have landed
-    uint32_t ready = 0;
-    while (!ready) {
-      asm volatile(
-          "{\n\t.reg .pred p;\n\t"
-          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-          "selp.u32 %0, 1, 0, p;\n\t}"
-          : "=r"(ready)
-          : "r"(bar_a), "r"(phase)
-          : "memory");
-    }
-    phase ^= 1;
-    // copy_out.start() and copy_out.wait(): the store completes before the
-    // buffer is loaded again
-    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(gd),
-                 "r"(buf_a), "r"(bytes)
+  const unsigned char* gs = s + head;
+  unsigned char* gd = d + head;
+  auto bytes_of = [&](size_t i) {
+    return (uint32_t)(body - i * piece < piece ? body - i * piece : piece);
+  };
+  for (unsigned st = 0; st < stages; ++st)
+    bulk_load(buf_a + st * piece, gs + st * piece, bytes_of(st), bar_a + 8 * st);
+  uint32_t phase = 0;   // bit st: parity of stage st's next completion
+  for (size_t i = 0; i < n; ++i) {
+    const unsigned st = (unsigned)(i % stages);
+    bulk_wait(bar_a + 8 * st, (phase >> st) & 1u);
+    phase ^= 1u << st;
+    // copy_out.start(): the piece's store, one bulk group
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(
+                     gd + i * piece),
+                 "r"(buf_a + st * piece), "r"(bytes_of(i))
                  : "memory");
     asm volatile("cp.async.bulk.commit_group;" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+    // refill the previous piece's stage with the piece `stages` after it,
+    // once that stage's store has read it (the newest group may still read)
+    const size_t j = i + stages - 1;
+    if (i >= 1 && j < n) {
+      const unsigned pst = (unsigned)((i - 1) % stages);
+      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      bulk_load(buf_a + pst * piece, gs + j * piece, bytes_of(j), bar_a + 8 * pst);
+    }
   }
+  // copy_out.wait(): every write of the tile has completed
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 bool valid(long long rows, long long cols, int elem_size, int block_rows) {
@@ -174,13 +213,15 @@ extern "C" int dma_copy_explicit(const void* src, void* dst, long long rows, lon
                                  int elem_size, int block_rows, void* stream) {
   if (!valid(rows, cols, elem_size, block_rows)) return (int)cudaErrorInvalidValue;
   const size_t tile_bytes = (size_t)block_rows * (size_t)cols * (size_t)elem_size;
-  // the buffer holds one piece: the tile rounded up to 16 bytes, at most kPiece
+  // the ring holds up to kStages pieces of the tile rounded up to 16 bytes
   const size_t rounded = (tile_bytes + 15) & ~(size_t)15;
   const unsigned piece = (unsigned)(rounded < kPiece ? rounded : kPiece);
+  const size_t pieces = (rounded + piece - 1) / piece;
+  const int smem = (int)(piece * (pieces < kStages ? pieces : kStages));
   cudaError_t err = cudaFuncSetAttribute(dma_copy_explicit_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)piece);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dma_copy_explicit_kernel<<<(unsigned)(rows / block_rows), kExplicitThreads, piece,
+  dma_copy_explicit_kernel<<<(unsigned)(rows / block_rows), kExplicitThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned char*>(src), static_cast<unsigned char*>(dst), tile_bytes, piece);
   return (int)cudaGetLastError();

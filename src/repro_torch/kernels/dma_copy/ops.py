@@ -4,8 +4,9 @@ Replaces ``repro.kernels.dma_copy.ops.dma_copy``: an [R, C] copy in tiles of
 ``block_rows`` rows, either ``"pipelined"`` (the hardware keeps each thread's
 vector loads in flight, as BlockSpec pipelining does on the TPU) or
 ``"explicit"`` (one thread of each block issues Hopper bulk (TMA) copies
-global→shared→global and waits on each, as the reference's hand-issued
-async copies and DMA semaphores do).  A CPU tensor takes the plain tiled
+global→shared→global through a ring of four 32 KiB pieces, each load
+waited on its stage's mbarrier and each store issued as a bulk group, as
+the reference's hand-issued async copies and DMA semaphores do).  A CPU tensor takes the plain tiled
 version (``ref.dma_copy_tiled``); a CUDA tensor launches the kernel or
 raises.
 """

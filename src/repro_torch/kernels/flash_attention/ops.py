@@ -2,9 +2,11 @@
 
 Replaces ``repro.kernels.flash_attention.ops.flash_attention``.  Unlike the
 TPU kernel it takes any S (the ragged tail is masked in the kernel) and K/V
-with fewer heads than Q (GQA/MQA without expanding them).  A CPU tensor takes
-the plain version (``ref.flash_attention_ref``); a CUDA tensor launches the
-kernel or raises.
+with fewer heads than Q (GQA/MQA without expanding them).  bf16 inputs run
+on the tensor cores (P is rounded to bf16 before P V); float32 inputs run on
+the FP32 pipes, which meet the fp32 tolerance.  A CPU tensor takes the plain
+version (``ref.flash_attention_ref``); a CUDA tensor launches the kernel or
+raises (bf16 pointers must be 16-byte aligned, as fresh allocations are).
 """
 from __future__ import annotations
 

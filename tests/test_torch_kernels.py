@@ -4,6 +4,8 @@ On the CPU each wrapper takes its kernel's plain PyTorch version; the tests
 marked ``cuda`` launch the CUDA kernels and run only on a machine with a card
 (``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_*.py``).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -88,6 +90,60 @@ def test_flash_plain_matches_reference(B, S, H, Hkv, hd, causal, dtype):
     assert out.dtype == q.dtype and out.shape == q.shape
     close(out, jax_flash_ref(qj, kj, vj, causal=causal), FLASH_TOL[dtype])
     close(out, jax_dense(qj, kj, vj, causal=causal), FLASH_TOL[dtype])
+
+
+def flash_bf16_emulated(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, block_k: int = 64) -> torch.Tensor:
+    """The bf16 CUDA kernel's rounding points, in torch on the CPU: bf16
+    inputs, fp32 scores, an online softmax over 64-key tiles in the log2
+    domain, P rounded to bf16 before P V, fp32 accumulation, a bf16 output."""
+    B, S, H, hd = q.shape
+    rep = H // k.shape[2]
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    scale_log2 = hd ** -0.5 * math.log2(math.e)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf)
+    if causal:
+        keep = torch.ones(S, S, dtype=torch.bool).tril()
+        scores = scores.masked_fill(~keep, float("-inf"))
+    m = torch.full((B, H, S), float("-inf"))
+    l = torch.zeros(B, H, S)
+    acc = torch.zeros(B, H, S, hd)
+    for k0 in range(0, S, block_k):
+        s = scores[..., k0:k0 + block_k]
+        m_new = torch.maximum(m, s.amax(-1) * scale_log2)
+        m_use = torch.where(m_new == float("-inf"), torch.zeros(()), m_new)
+        alpha = torch.exp2(m - m_use)
+        p = torch.exp2(s * scale_log2 - m_use[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.bfloat16().float(), vf[:, k0:k0 + block_k])
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("S", [61, 255])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_probabilities_within_tolerance(S, causal):
+    """Rounding P to bf16 before P V (the tensor-core kernel's design) stays
+    within the bf16 tolerance of the JAX oracle and of the plain version, at
+    the serving path's hd=256 and Hkv=1 and a ragged S."""
+    B, H, Hkv, hd = 2, 8, 1, 256
+    q_np = rng.normal(size=(B, S, H, hd)).astype(np.float32)
+    k_np = rng.normal(size=(B, S, Hkv, hd)).astype(np.float32)
+    v_np = rng.normal(size=(B, S, Hkv, hd)).astype(np.float32)
+    q, qj = both(q_np, "bfloat16")
+    k, _ = both(k_np, "bfloat16")
+    v, _ = both(v_np, "bfloat16")
+    _, kj = both(np.repeat(k_np, H // Hkv, axis=2), "bfloat16")
+    _, vj = both(np.repeat(v_np, H // Hkv, axis=2), "bfloat16")
+    out = flash_bf16_emulated(q, k, v, causal)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+    close(out, jax_flash_ref(qj, kj, vj, causal=causal), FLASH_TOL["bfloat16"])
+    close(out, flash_attention_ref(q, k, v, causal).float().numpy(),
+          FLASH_TOL["bfloat16"])
 
 
 # ---------------------------------------------------------------- ssd
@@ -294,7 +350,9 @@ def test_rms_norm_kernel_on_card(dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,Hkv,hd", [(255, 1, 256), (130, 2, 128), (64, 8, 64)])
+@pytest.mark.parametrize("S,Hkv,hd", [(255, 1, 256), (130, 2, 128), (64, 8, 64)] + [
+    (S, Hkv, hd) for S in (1, 17, 100, 1000) for hd in (64, 128, 256)
+    for Hkv in (1, 2, 8)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_kernel_on_card(S, Hkv, hd, causal, dtype):
@@ -332,9 +390,11 @@ def test_ssd_scan_kernel_on_card(B, S, H, P, N, chunk, dtype):
 @pytest.mark.parametrize("R,C,blk,dtype", [
     (1024, 128, 256, "float32"), (256, 64, 64, "bfloat16"),
     (128, 32, 128, "int8"), (96, 33, 32, "int8"), (99, 37, 3, "int8"),
-    (4096, 4096, 256, "bfloat16")])
+    (4096, 4096, 256, "bfloat16"), (40, 4104, 5, "bfloat16"),
+    (60, 40001, 6, "int8")])
 def test_dma_copy_kernel_on_card(mode, R, C, blk, dtype):
-    """Byte-exact, with tiles larger than one 64 KiB TMA piece and tiles at
+    """Byte-exact, with tiles of one TMA piece, of two (fewer than the
+    explicit kernel's ring of four), of many (the ring wraps), and tiles at
     offsets that are not multiples of 16 bytes."""
     _need_card()
     x = dma_both(R, C, dtype, seed=3)[0].to("cuda")
