@@ -15,7 +15,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    3e-5 / 3e-2, SSD scan 1e-3 / 6e-2; ``tests/test_kernels.py``), at the
    paths' shapes and at ragged ones (flash: S of 1, 17, 100 and 1000, which
    are not multiples of the 16x8 fragments or the 64-key tiles, at hd 64,
-   128 and 256 and Hkv 1, 2 and 8);
+   128 and 256 and Hkv 1, 2 and 8; SSD: a ragged chunk, chunks of 16 and 64,
+   16 chunks, H = 3 and 11, P < 64 and N < 128);
 
 then the paper's DMA case study (section 6.2):
 
@@ -29,11 +30,13 @@ D1. host->device transfers: ``sweep_transfer`` over the sizes of
     over the same sizes, inline below 24 KiB and direct above;
 D2. the two DMA-copy kernels (pipelined, explicit TMA) held byte for byte
     against the plain tiled copy at the reference's test shapes (f32, bf16,
-    int8), at tiles whose offsets are not multiples of 16, and at the path
-    shape, [32768, 4096] bf16 (256 MiB); then the path: each copy at
-    block_rows 8, 32, 128 and 256 bracketed by ``ProgressTracker`` releases
-    on one session (counts zeroed just before, read just after), and the
-    brackets held against torch.profiler's device time;
+    int8), at tiles whose offsets are not multiples of 16, at tiles of one
+    pipelined slice and one byte more, and at the path shape, [32768, 4096]
+    bf16 (256 MiB); then the path: each copy at block_rows 8, 32, 128 and
+    256 bracketed by ``ProgressTracker`` releases on one session (counts
+    zeroed just before, read just after), and the brackets held against
+    torch.profiler's device time, with each copy's grid and blocks resident
+    per SM and its time against ``copy_``;
 
 then, for each serving path, gemma-2b (dense, flash attention) and
 mamba2-780m (SSD scan), both at full published width:
@@ -87,7 +90,7 @@ from repro_torch.core import (H100_SXM, INLINE_THRESHOLD_DEFAULT,  # noqa: E402
                               HybridMover, TraceSession, direct_put,
                               inline_put, sweep_transfer)
 from repro_torch.kernels import _build, launches, reset_launches  # noqa: E402
-from repro_torch.kernels.dma_copy.ops import MODES, dma_copy  # noqa: E402
+from repro_torch.kernels.dma_copy.ops import MODES, dma_copy, occupancy  # noqa: E402
 from repro_torch.kernels.dma_copy.ref import dma_copy_tiled  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
@@ -155,12 +158,17 @@ TRANSFER_ITERS, TRANSFER_WARMUP = 20, 5
 # 32 KiB TMA pieces, fewer than the explicit kernel's ring of four (bf16
 # [40, 4104] in tiles of 5 rows, 41040 bytes), and tiles of eight pieces
 # with unaligned heads and tails, where the ring wraps (int8 [60, 40001] in
-# tiles of 6 rows, 240006 bytes)
+# tiles of 6 rows, 240006 bytes); then tiles of exactly one and four 16 KiB
+# pipelined slices (int8 [8, 16384] in tiles of 1 row, [8, 32768] in tiles of
+# 2) and of one byte more (int8 [3, 16385] and [3, 65537] in tiles of 1 row:
+# a last slice of 1 byte, and tiles at odd offsets)
 COPY_CASES = [(R, C, blk, dt) for R, C, blk in ((256, 64, 64), (1024, 128, 256),
                                                 (128, 32, 128))
               for dt in (torch.float32, torch.bfloat16, torch.int8)] + [
     (96, 33, 32, torch.int8), (99, 37, 3, torch.int8), (60, 7, 4, torch.bfloat16),
-    (40, 4104, 5, torch.bfloat16), (60, 40001, 6, torch.int8)]
+    (40, 4104, 5, torch.bfloat16), (60, 40001, 6, torch.int8),
+    (8, 16384, 1, torch.int8), (3, 16385, 1, torch.int8),
+    (8, 32768, 2, torch.int8), (3, 65537, 1, torch.int8)]
 DMA_SHAPE = (32768, 4096)            # bf16: 256 MiB
 DMA_DTYPE = torch.bfloat16
 DMA_BLOCK_ROWS = 256                 # the reference's default
@@ -209,8 +217,12 @@ def card_line() -> str:
 
 # ---------------------------------------------------------------- phase 2
 # the kernels redesigned for Hopper after their first port (tensor cores; a
-# ring of TMA pieces), whose registers and spills go into the kernels line
-REDESIGNED = ("flash_attention_mma_kernel", "dma_copy_explicit_kernel")
+# ring of TMA pieces; the chunk-parallel SSD steps; the pipelined copy's
+# slices), whose registers and spills go into the kernels line
+REDESIGNED = ("flash_attention_mma_kernel", "dma_copy_explicit_kernel",
+              "ssd_scan_cumsum_kernel", "ssd_scan_cb_kernel",
+              "ssd_scan_state_kernel", "ssd_scan_pass_kernel",
+              "ssd_scan_out_kernel", "dma_copy_pipelined_kernel")
 
 
 def kernel_label(mangled: str) -> str:
@@ -334,12 +346,17 @@ def check_kernels(device: torch.device) -> None:
                 log(f"flash B=4 S={S} H=8 Hkv={Hkv} hd={hd} causal={causal} "
                     f"{dtype}: max|err| {max_err(out, ref):.3e} (tol {tol})")
     # (B, S, H, P, N, chunk): the mamba path's shape; one ragged chunk
-    # (Q = S = 255); small chunks (Q = 16); H = 3; P < 64 and N < 128
+    # (Q = S = 255); small chunks (Q = 16); H = 3; P < 64 and N < 128; 16
+    # chunks, so the state is passed 15 times; chunks of 64 (one tile); 165
+    # (batch, chunk, head) items, not a multiple of the 132 SMs
     for B, S, H, P, N, chunk in ((4, 1024, 48, 64, 128, 256),
                                  (4, 255, 48, 64, 128, 256),
                                  (4, 64, 48, 64, 128, 16),
                                  (2, 512, 3, 64, 128, 256),
-                                 (2, 96, 5, 16, 8, 32)):
+                                 (2, 96, 5, 16, 8, 32),
+                                 (1, 4096, 48, 64, 128, 256),
+                                 (2, 512, 48, 64, 128, 64),
+                                 (3, 1280, 11, 64, 128, 256)):
         for dtype in dtypes:
             args = ssd_inputs(B, S, H, P, N, dtype, device)
             out, none = ssd_scan(*args, chunk=chunk)
@@ -491,21 +508,25 @@ def copy_path(card: str, device: torch.device) -> List[Dict[str, Any]]:
         raise AssertionError(f"dma_copy launches {counts} in the path, "
                              f"expected {want} each")
     bound = roofline(nbytes, 0)
-    prof = {}
+    library_ms = device_ms(lambda: torch.empty_like(x).copy_(x))
+    prof, occ = {}, {}
     for blk in DMA_TILES:
         for mode in MODES:
             prof[mode, blk] = ms = device_ms(lambda: dma_copy(x, mode, blk))
             br = bracket[mode, blk]
+            occ[mode, blk] = grid, per_sm = (occupancy(x, mode, blk)
+                                             if device.type == "cuda" else (0, 0))
             log(f"{card} | dma_copy_{mode} [{R}, {C}] bf16 block_rows={blk}: "
                 f"{ms:.5f} ms (profiler), {br:.5f} ms (semaphore bracket), "
                 f"{bound['bound_ms'] / ms:.1%} of the {bound['bound_ms']:.5f} "
-                f"ms bound, {nbytes / ms / 1e6:.1f} GB/s read+written")
+                f"ms bound, {ms / library_ms:.3f}x copy_, "
+                f"{nbytes / ms / 1e6:.1f} GB/s read+written; grid {grid} "
+                f"blocks, {per_sm} resident per SM")
             if abs(br - ms) > BRACKET_TOL * ms:
                 raise AssertionError(f"semaphore bracket {br:.5f} ms and "
                                      f"profiler {ms:.5f} ms disagree by more "
                                      f"than {BRACKET_TOL:.0%}")
     plain_ms = device_ms(lambda: dma_copy_tiled(x, DMA_BLOCK_ROWS), reps=5)
-    library_ms = device_ms(lambda: torch.empty_like(x).copy_(x))
     log(f"{card} | plain tiled copy (block_rows={DMA_BLOCK_ROWS}) "
         f"{plain_ms:.5f} ms; torch.empty_like(x).copy_(x) {library_ms:.5f} ms")
     for mode in MODES:
@@ -529,6 +550,8 @@ def copy_path(card: str, device: torch.device) -> List[Dict[str, Any]]:
             "shape": f"R={R} C={C} bf16 block_rows={DMA_BLOCK_ROWS}",
             "bracket_ms": bracket[mode, DMA_BLOCK_ROWS],
             "tiles_ms": {str(blk): prof[mode, blk] for blk in DMA_TILES},
+            "tiles_grid_blocks_per_sm": {str(blk): list(occ[mode, blk])
+                                         for blk in DMA_TILES},
             "launches_by_path": {"dma": counts[mode]},
             "launches": counts[mode]})
         del out
@@ -701,10 +724,16 @@ def _profile(fn: Callable[[], Any], reps: int = 1):
 
 def device_ms(fn: Callable[[], Any], reps: int = 20) -> float:
     """Device time per call: the kernels' own time, without host gaps."""
+    return sum(device_ms_by_kernel(fn, reps).values())
+
+
+def device_ms_by_kernel(fn: Callable[[], Any], reps: int = 20
+                        ) -> Dict[str, float]:
+    """Device time per call of each kernel ``fn`` launches, by name."""
     rows, _ = _profile(fn, reps)
     if not rows:
         raise RuntimeError("torch.profiler recorded no kernel on the card")
-    return sum(e.self_device_time_total for e in rows) / reps / 1e3
+    return {e.key: e.self_device_time_total / reps / 1e3 for e in rows}
 
 
 def profile_window(fn: Callable[[], Any], label: str, top: int = 8,
@@ -876,14 +905,21 @@ def ssd_entry(device: torch.device) -> Dict[str, Any]:
     nbytes = 2 * B * S * H * P * item + (B * S * H + H) * 4 + 2 * B * S * N * item
     # the products this run needs: per (b, chunk) C B^T over the causal pairs,
     # once for all heads; per head the intra term over the causal pairs, the
-    # inter term C h^T and the state update x^T B
-    pairs = Q * (Q + 1) // 2
-    flops = 2 * B * (S // Q) * (pairs * N + H * (pairs * P + 2 * Q * N * P))
+    # inter term C h^T of every chunk after the first and the state of
+    # every chunk before the last
+    pairs, n = Q * (Q + 1) // 2, S // Q
+    flops = 2 * B * (n * (pairs * N + H * pairs * P) + 2 * (n - 1) * H * Q * N * P)
+    # the call's five kernels, by step
+    steps = {}
+    for key, ms in device_ms_by_kernel(lambda: ssd_scan(*args, chunk=Q)).items():
+        m = re.search(r"ssd_scan_(\w+?)_kernel", key)
+        steps[m.group(1) if m else key] = ms
     return {"name": "ssd_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan/kernel.py:84",
             "max_abs_err": err,
-            "ms": device_ms(lambda: ssd_scan(*args, chunk=Q)),
+            "ms": sum(steps.values()),
+            "steps_ms": steps,
             "plain_ms": device_ms(lambda: ssd_chunked(*args, chunk=Q), reps=5),
             "call_ms": time_ms(lambda: ssd_scan(*args, chunk=Q), reps=20),
             **roofline(nbytes, flops),

@@ -96,12 +96,16 @@ def library() -> ctypes.CDLL:
     lib.flash_attention_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                         i32, i32, ctypes.c_float, i32, ptr]
     lib.flash_attention_fwd.restype = i32
-    lib.ssd_scan_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                                 i32, i32, i32, i32, ptr]
+    # x, dt, A, Bc, Cc, y, then the workspaces cum, dt, cb, states
+    lib.ssd_scan_fwd.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
     lib.ssd_scan_fwd.restype = i32
     i64 = ctypes.c_longlong
-    for fn in (lib.dma_copy_pipelined, lib.dma_copy_explicit):
-        fn.argtypes = [ptr, ptr, i64, i64, i32, i32, ptr]
+    lib.dma_copy_pipelined.argtypes = [ptr, ptr, i64, i64, i32, i32, i64, ptr]
+    lib.dma_copy_explicit.argtypes = [ptr, ptr, i64, i64, i32, i32, ptr]
+    lib.dma_copy_occupancy.argtypes = [i32, i64, i64, i32, i32, i64,
+                                       ctypes.POINTER(i64), ctypes.POINTER(i32)]
+    for fn in (lib.dma_copy_pipelined, lib.dma_copy_explicit,
+               lib.dma_copy_occupancy):
         fn.restype = i32
     lib.inline_put_prepare.argtypes = []
     lib.inline_put_prepare.restype = i32

@@ -4,7 +4,8 @@
 // Replaces: dma_copy_pipelined and dma_copy_explicit in
 //   src/repro/kernels/dma_copy/kernel.py (the Pallas TPU kernels of the
 //   paper's controlled-DMA case study).  Both copy an [R, C] array in tiles of
-//   block_rows rows, one grid step per tile; here one block per tile.
+//   block_rows rows, one grid step per tile; here one block per tile
+//   (explicit) or per slice of a tile (pipelined).
 // Computes: dst = src, byte for byte, for any element type: the interface
 //   takes rows, columns and the element size, and the kernels move
 //   tile_bytes = block_rows * C * elem_size bytes at byte offset
@@ -13,11 +14,22 @@
 //   elem_size bytes over 3.35 TB/s (0.1603 ms for the 256 MiB bf16 array
 //   chip_smoke.py copies); there is no arithmetic.
 // Design:
-//   pipelined — the "automatic" path.  Each of 512 threads keeps four 16-byte
+//   pipelined — the "automatic" path.  Each of 256 threads keeps four 16-byte
 //     loads in flight before it stores them, so the hardware overlaps the
 //     loads of a block as BlockSpec double-buffering overlaps the TPU's DMAs.
 //     Streaming cache hints (__ldcs/__stcs) keep the once-used bytes from
-//     evicting others in L2.
+//     evicting others in L2.  The grid does not follow the tiles: each tile
+//     is cut into slices of slice_bytes (a multiple of 16; the caller picks
+//     16 KiB, one pass of the block's four loads a thread), one block a slice,
+//     the last slice of a tile shorter.  Block i copies slice i % slices of
+//     tile i / slices, so blocks in index order sweep neighbouring addresses
+//     and the grid holds thousands of blocks at any block_rows, as copy_'s
+//     does, where one block a tile would leave SMs idle (128 blocks of 2 MiB
+//     at block_rows 256 on 132 SMs).  A slice begins on a 16-byte boundary
+//     wherever its tile does; where the tile does not (rows whose bytes are
+//     not a multiple of 16), the slice's head and tail of at most 15 bytes go
+//     by bytes and the rest still by vectors, since a tile's offset is the
+//     same in src and dst.
 //   explicit — the paper's controlled DMA issuance: one elected thread writes
 //     the copy descriptors itself.  The tile goes in pieces of at most 32 KiB
 //     through a ring of 4 stages of dynamic shared memory (128 KiB), each
@@ -50,7 +62,7 @@
 
 namespace {
 
-constexpr int kPipelinedThreads = 512;
+constexpr int kPipelinedThreads = 256;
 constexpr int kUnroll = 4;                 // 16-byte loads in flight a thread
 constexpr int kExplicitThreads = 128;      // byte heads and tails only
 constexpr unsigned kPiece = 32 * 1024;     // bytes a bulk copy moves at most
@@ -72,16 +84,18 @@ __device__ __forceinline__ void copy_bytes(const unsigned char* s, unsigned char
 
 __global__ void __launch_bounds__(kPipelinedThreads)
     dma_copy_pipelined_kernel(const unsigned char* __restrict__ src, unsigned char* __restrict__ dst,
-                              size_t tile_bytes) {
-  const size_t off = (size_t)blockIdx.x * tile_bytes;
+                              size_t tile_bytes, size_t slice_bytes, unsigned slices) {
+  const size_t begin = (size_t)(blockIdx.x % slices) * slice_bytes;
+  const size_t off = (size_t)(blockIdx.x / slices) * tile_bytes + begin;
+  const size_t bytes = tile_bytes - begin < slice_bytes ? tile_bytes - begin : slice_bytes;
   const unsigned char* s = src + off;
   unsigned char* d = dst + off;
   if (!co_aligned(s, d)) {
-    copy_bytes(s, d, 0, tile_bytes);
+    copy_bytes(s, d, 0, bytes);
     return;
   }
-  const size_t head = head_bytes(s, tile_bytes);
-  const size_t nv = (tile_bytes - head) / 16;
+  const size_t head = head_bytes(s, bytes);
+  const size_t nv = (bytes - head) / 16;
   copy_bytes(s, d, 0, head);
   const int4* sv = reinterpret_cast<const int4*>(s + head);
   int4* dv = reinterpret_cast<int4*>(d + head);
@@ -99,7 +113,7 @@ __global__ void __launch_bounds__(kPipelinedThreads)
       if (i < nv) __stcs(dv + i, r[u]);
     }
   }
-  copy_bytes(s, d, head + nv * 16, tile_bytes);
+  copy_bytes(s, d, head + nv * 16, bytes);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -194,18 +208,33 @@ bool valid(long long rows, long long cols, int elem_size, int block_rows) {
          rows / block_rows <= 0x7fffffffLL;
 }
 
+// Slices a tile of the pipelined copy, or 0 if the split is not valid or
+// the grid would pass 2^31 - 1 blocks.
+long long pipelined_slices(long long rows, long long cols, int elem_size, int block_rows,
+                           long long slice_bytes) {
+  if (!valid(rows, cols, elem_size, block_rows) || slice_bytes <= 0 || slice_bytes % 16 != 0)
+    return 0;
+  const long long tile_bytes = (long long)block_rows * cols * elem_size;
+  const long long slices = (tile_bytes + slice_bytes - 1) / slice_bytes;
+  return slices <= 0x7fffffffLL / (rows / block_rows) ? slices : 0;
+}
+
 }  // namespace
 
 // Both entry points copy rows x cols elements of elem_size bytes from src to
-// dst (contiguous, not overlapping), one block per tile of block_rows rows,
-// on the given stream.  Each returns a cudaError_t (0 on success).
+// dst (contiguous, not overlapping) in tiles of block_rows rows, on the given
+// stream: the pipelined copy one block per slice of slice_bytes of a tile, the
+// explicit copy one block per tile.  Each returns a cudaError_t (0 on success).
 extern "C" int dma_copy_pipelined(const void* src, void* dst, long long rows, long long cols,
-                                  int elem_size, int block_rows, void* stream) {
-  if (!valid(rows, cols, elem_size, block_rows)) return (int)cudaErrorInvalidValue;
+                                  int elem_size, int block_rows, long long slice_bytes,
+                                  void* stream) {
+  const long long slices = pipelined_slices(rows, cols, elem_size, block_rows, slice_bytes);
+  if (slices == 0) return (int)cudaErrorInvalidValue;
   const size_t tile_bytes = (size_t)block_rows * (size_t)cols * (size_t)elem_size;
-  dma_copy_pipelined_kernel<<<(unsigned)(rows / block_rows), kPipelinedThreads, 0,
+  dma_copy_pipelined_kernel<<<(unsigned)(rows / block_rows * slices), kPipelinedThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(src), static_cast<unsigned char*>(dst), tile_bytes);
+      static_cast<const unsigned char*>(src), static_cast<unsigned char*>(dst), tile_bytes,
+      (size_t)slice_bytes, (unsigned)slices);
   return (int)cudaGetLastError();
 }
 
@@ -225,4 +254,32 @@ extern "C" int dma_copy_explicit(const void* src, void* dst, long long rows, lon
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned char*>(src), static_cast<unsigned char*>(dst), tile_bytes, piece);
   return (int)cudaGetLastError();
+}
+
+// The launch of mode 0 (pipelined, slices of slice_bytes) or 1 (explicit,
+// its ring's shared memory as dma_copy_explicit sizes it): the blocks of its
+// grid and the blocks of it one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Returns a cudaError_t.
+extern "C" int dma_copy_occupancy(int mode, long long rows, long long cols, int elem_size,
+                                  int block_rows, long long slice_bytes, long long* grid,
+                                  int* blocks_per_sm) {
+  if (mode == 0) {
+    const long long slices = pipelined_slices(rows, cols, elem_size, block_rows, slice_bytes);
+    if (slices == 0) return (int)cudaErrorInvalidValue;
+    *grid = rows / block_rows * slices;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, dma_copy_pipelined_kernel, kPipelinedThreads, 0);
+  }
+  if (mode != 1 || !valid(rows, cols, elem_size, block_rows)) return (int)cudaErrorInvalidValue;
+  const size_t tile_bytes = (size_t)block_rows * (size_t)cols * (size_t)elem_size;
+  const size_t rounded = (tile_bytes + 15) & ~(size_t)15;
+  const unsigned piece = (unsigned)(rounded < kPiece ? rounded : kPiece);
+  const size_t pieces = (rounded + piece - 1) / piece;
+  const size_t smem = piece * (pieces < kStages ? pieces : kStages);
+  cudaError_t err = cudaFuncSetAttribute(dma_copy_explicit_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  *grid = rows / block_rows;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, dma_copy_explicit_kernel, kExplicitThreads, smem);
 }

@@ -2,7 +2,8 @@
 
 Replaces ``repro.kernels.dma_copy.ops.dma_copy``: an [R, C] copy in tiles of
 ``block_rows`` rows, either ``"pipelined"`` (the hardware keeps each thread's
-vector loads in flight, as BlockSpec pipelining does on the TPU) or
+vector loads in flight, as BlockSpec pipelining does on the TPU; each tile is
+cut into ``SLICE_BYTES`` slices, one block a slice, ``pipelined_split``) or
 ``"explicit"`` (one thread of each block issues Hopper bulk (TMA) copies
 global→shared→global through a ring of four 32 KiB pieces, each load
 waited on its stage's mbarrier and each store issued as a bulk group, as
@@ -12,14 +13,29 @@ raises.
 """
 from __future__ import annotations
 
+import ctypes
+from typing import List, Tuple
+
 import torch
 
 from .. import _build, launches
 from .ref import dma_copy_tiled
 
-__all__ = ["dma_copy", "MODES"]
+__all__ = ["dma_copy", "MODES", "SLICE_BYTES", "pipelined_split",
+           "occupancy"]
 
 MODES = ("pipelined", "explicit")
+# bytes a block of the pipelined copy moves: one pass of its 256 threads,
+# four 16-byte loads each (csrc/dma_copy.cu); a multiple of 16
+SLICE_BYTES = 16 * 1024
+
+
+def pipelined_split(tile_bytes: int) -> List[Tuple[int, int]]:
+    """The byte ranges [begin, end) of a tile that the pipelined kernel's
+    blocks copy, in block order: slice j begins at ``j * SLICE_BYTES``, and
+    the last one ends at the tile's end."""
+    return [(b, min(b + SLICE_BYTES, tile_bytes))
+            for b in range(0, tile_bytes, SLICE_BYTES)]
 
 
 def dma_copy(x: torch.Tensor, mode: str = "pipelined",
@@ -47,10 +63,27 @@ def dma_copy(x: torch.Tensor, mode: str = "pipelined",
     if x.numel() == 0:
         return out
     lib = _build.library()
-    fn = lib.dma_copy_explicit if mode == "explicit" else lib.dma_copy_pipelined
+    args = [x.data_ptr(), out.data_ptr(), R, C, x.element_size(), block_rows]
+    if mode == "explicit":
+        fn = lib.dma_copy_explicit
+    else:
+        fn = lib.dma_copy_pipelined
+        args.append(SLICE_BYTES)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), out.data_ptr(), R, C, x.element_size(),
-                 block_rows, _build.stream_ptr(x.device))
+        err = fn(*args, _build.stream_ptr(x.device))
     _build.check(err, f"dma_copy_{mode}")
     launches[f"dma_copy_{mode}"] += 1
     return out
+
+
+def occupancy(x: torch.Tensor, mode: str, block_rows: int) -> Tuple[int, int]:
+    """(blocks in the grid, blocks one SM holds at once) of the ``mode`` copy
+    of the CUDA tensor ``x`` in tiles of ``block_rows`` rows."""
+    R, C = x.shape
+    grid, per_sm = ctypes.c_longlong(), ctypes.c_int()
+    with torch.cuda.device(x.device):
+        err = _build.library().dma_copy_occupancy(
+            MODES.index(mode), R, C, x.element_size(), min(block_rows, R),
+            SLICE_BYTES, ctypes.byref(grid), ctypes.byref(per_sm))
+    _build.check(err, f"dma_copy_{mode} occupancy")
+    return grid.value, per_sm.value

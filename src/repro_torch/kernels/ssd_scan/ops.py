@@ -1,24 +1,41 @@
-"""Wrapper of the SSD-scan kernel (``csrc/ssd_scan.cu``).
+"""Wrapper of the SSD-scan kernels (``csrc/ssd_scan.cu``).
 
 Replaces ``repro.kernels.ssd_scan.ops.ssd_scan`` and, like it, returns
-``(y, None)``: the kernel does not write the final state.  A CPU tensor takes
-the plain version (``ref.ssd_chunked``); a CUDA tensor launches the kernel or
-raises.
+``(y, None)``: the kernels do not write the final state.  A CPU tensor takes
+the plain version (``ref.ssd_chunked``); a CUDA tensor launches the kernels
+or raises.  One call is one ``launches["ssd_scan"]``: the five launches of
+the chunked scan (``ref.ssd_chunk_states``, ``ssd_state_passing`` and
+``ssd_chunk_outputs`` are their steps in plain PyTorch) go through one C
+entry point.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .. import _build, launches
 from .ref import ssd_chunked
 
-__all__ = ["ssd_scan", "MAX_P", "MAX_N", "MAX_CHUNK"]
+__all__ = ["ssd_scan", "workspace_shapes", "MAX_P", "MAX_N", "MAX_CHUNK",
+           "TILE"]
 
 MAX_P = 64
 MAX_N = 128
 MAX_CHUNK = 4096
+TILE = 64            # rows of q and k in the kernels' tiles (kTile)
+
+
+def workspace_shapes(B: int, S: int, H: int, P: int, N: int, chunk: int
+                     ) -> Dict[str, Tuple[int, ...]]:
+    """The fp32 workspaces of one kernel call, in the order of the C entry
+    point: cum(dt * A) and dt along S per (b, h); C B^T per (b, chunk) on
+    tiles padded to TILE rows; the state at the start of each chunk after
+    the first."""
+    n = S // chunk
+    Qp = -(-chunk // TILE) * TILE
+    return {"cum": (B, H, S), "dt": (B, H, S), "cb": (B, n, Qp, Qp),
+            "states": (B, H, n - 1, P, N)}
 
 
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -63,12 +80,17 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_scan kernel: P={P}, N={N}, chunk={chunk} must "
                          f"be at most {MAX_P}, {MAX_N}, {MAX_CHUNK}")
     y = torch.empty_like(xh)
+    # on the current stream, from PyTorch's caching allocator: a CUDA graph
+    # can capture the call
+    ws = [torch.empty(shape, dtype=torch.float32, device=xh.device)
+          for shape in workspace_shapes(B, S, H, P, N, chunk).values()]
     lib = _build.library()
     with torch.cuda.device(xh.device):
         err = lib.ssd_scan_fwd(
             xh.data_ptr(), dt.data_ptr(), A.data_ptr(), Bc.data_ptr(),
-            Cc.data_ptr(), y.data_ptr(), B, S, H, P, N, chunk,
-            _build.dtype_code(xh.dtype), _build.stream_ptr(xh.device))
+            Cc.data_ptr(), y.data_ptr(), *(w.data_ptr() for w in ws),
+            B, S, H, P, N, chunk, _build.dtype_code(xh.dtype),
+            _build.stream_ptr(xh.device))
     _build.check(err, "ssd_scan")
     launches["ssd_scan"] += 1
     return y, None

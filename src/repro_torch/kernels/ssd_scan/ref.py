@@ -1,15 +1,95 @@
 """Plain PyTorch version of the SSD-scan kernel (the CPU path and the oracle).
 
-A port of ``repro.models.mamba.ssd_chunked``, the one copy of the chunked
-scan in the port: ``models/mamba.py`` imports it from here.
+``ssd_chunked`` is a port of ``repro.models.mamba.ssd_chunked``, the one
+copy of the chunked scan in the port: ``models/mamba.py`` imports it from
+here.  ``ssd_chunk_states``, ``ssd_state_passing`` and ``ssd_chunk_outputs``
+are the steps the CUDA kernels take (``csrc/ssd_scan.cu``), in plain PyTorch
+for the tests: each chunk's own state, the states carried across chunks,
+then y.  Their ``operand`` argument rounds each fp32 operand of a product
+as the bf16 kernel's tensor cores do (``round_tf32``).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
-__all__ = ["ssd_chunked"]
+__all__ = ["ssd_chunked", "ssd_chunk_states", "ssd_state_passing",
+           "ssd_chunk_outputs", "round_tf32"]
+
+Operand = Optional[Callable[[torch.Tensor], torch.Tensor]]
+
+
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` does."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _chunks(dt: torch.Tensor, A: torch.Tensor, chunk: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dt and cum = cumsum(dt * A) inside each chunk, [B, n, Q, H] fp32."""
+    B, S, H = dt.shape
+    if chunk < 1 or S % chunk:
+        raise ValueError(f"sequence length {S} must be divisible by the ssm "
+                         f"chunk {chunk}")
+    dtc = dt.float().reshape(B, S // chunk, chunk, H)
+    return dtc, torch.cumsum(dtc * A.float(), dim=2)
+
+
+def ssd_chunk_states(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                     Bc: torch.Tensor, chunk: int, operand: Operand = None
+                     ) -> torch.Tensor:
+    """Each chunk's own state, [B, n, H, P, N] fp32: S_c = sum_k dt_k
+    exp(tot - cum_k) x_k (x) B_k, as if the chunk started from zero."""
+    B, S, H, P = xh.shape
+    dtc, cum = _chunks(dt, A, chunk)
+    n = S // chunk
+    w = dtc * torch.exp(cum[:, :, -1:, :] - cum)             # [B,n,Q,H]
+    xw = xh.float().reshape(B, n, chunk, H, P) * w[..., None]
+    if operand is not None:
+        xw = operand(xw)
+    return torch.einsum("bcqhp,bcqn->bchpn", xw,
+                        Bc.float().reshape(B, n, chunk, -1))
+
+
+def ssd_state_passing(states: torch.Tensor, dt: torch.Tensor,
+                      A: torch.Tensor, chunk: int) -> torch.Tensor:
+    """The state at the start of each chunk and after the last one, [B, n+1,
+    H, P, N] fp32: h_0 = 0, h_{c+1} = exp(tot_c) h_c + S_c."""
+    _, cum = _chunks(dt, A, chunk)
+    decay = torch.exp(cum[:, :, -1, :])[..., None, None]     # [B,n,H,1,1]
+    h = [torch.zeros_like(states[:, 0])]
+    for c in range(states.shape[1]):
+        h.append(decay[:, c] * h[-1] + states[:, c])
+    return torch.stack(h, dim=1)
+
+
+def ssd_chunk_outputs(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                      Bc: torch.Tensor, Cc: torch.Tensor, h: torch.Tensor,
+                      chunk: int, operand: Operand = None) -> torch.Tensor:
+    """y [B, S, H, P] in xh's type from the states ``h`` [B, >=n, H, P, N] at
+    the chunks' starts: (C B^T exp(cum_q - cum_k) dt_k, 0 above the
+    diagonal) x, plus exp(cum_q) C h^T."""
+    B, S, H, P = xh.shape
+    dtc, cum = _chunks(dt, A, chunk)
+    n = S // chunk
+    xc = xh.float().reshape(B, n, chunk, H, P)
+    Bcc = Bc.float().reshape(B, n, chunk, -1)
+    Ccc = Cc.float().reshape(B, n, chunk, -1)
+    operand = operand or (lambda t: t)
+    above = ~torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=xh.device).tril()[:, :, None]
+    # -inf above the diagonal before the exp, so nothing there can overflow
+    diff = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).masked_fill(
+        above, float("-inf"))                               # [B,n,Q,Q,H]
+    CB = torch.einsum("bcqn,bckn->bcqk", Ccc, Bcc)
+    M = CB[..., None] * torch.exp(diff) * dtc[:, :, None, :, :]
+    y = torch.einsum("bcqkh,bckhp->bcqhp", operand(M), xc)
+    y = y + (torch.einsum("bcqn,bchpn->bcqhp", Ccc, operand(h[:, :n]))
+             * torch.exp(cum)[..., None])
+    return y.reshape(B, S, H, P).to(xh.dtype)
 
 
 def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -25,16 +105,12 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """
     B, S, H, P = xh.shape
     N = Bc.shape[-1]
-    if chunk < 1 or S % chunk:
-        raise ValueError(f"sequence length {S} must be divisible by the ssm "
-                         f"chunk {chunk}")
+    dtc, cum = _chunks(dt, A, chunk)                        # [B,n,Q,H] (<=0)
     n = S // chunk
     xc = xh.float().reshape(B, n, chunk, H, P)
-    dtc = dt.float().reshape(B, n, chunk, H)
     Bcc = Bc.float().reshape(B, n, chunk, N)
     Ccc = Cc.float().reshape(B, n, chunk, N)
 
-    cum = torch.cumsum(dtc * A.float(), dim=2)              # [B,n,Q,H] (<=0)
     mask = torch.ones(chunk, chunk, dtype=torch.bool,
                       device=xh.device).tril()[None, :, :, None]
     h = torch.zeros(B, H, P, N, dtype=torch.float32, device=xh.device)

@@ -370,10 +370,14 @@ def test_flash_kernel_on_card(S, Hkv, hd, causal, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,P,N,chunk", [
     (2, 512, 4, 64, 128, 256), (1, 255, 3, 64, 128, 256),
-    (2, 64, 2, 16, 8, 16), (1, 128, 3, 32, 16, 128)])
+    (2, 64, 2, 16, 8, 16), (1, 128, 3, 32, 16, 128),
+    (1, 4096, 48, 64, 128, 256), (2, 512, 48, 64, 128, 64),
+    (3, 1280, 11, 64, 128, 256)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_scan_kernel_on_card(B, S, H, P, N, chunk, dtype):
-    """Ragged chunks (Q = S = 255), small chunks, H = 3, P < 64, N < 128."""
+    """Ragged chunks (Q = S = 255), small chunks, H = 3, P < 64, N < 128;
+    16 chunks (the state passed 15 times), chunks of 64, and 165 (batch,
+    chunk, head) items, not a multiple of the H100's 132 SMs."""
     _need_card()
     args = [t.to("cuda") for t in
             ssd_both(ssd_inputs(B, S, H, P, N, seed=9), dtype)[0]]
@@ -391,11 +395,13 @@ def test_ssd_scan_kernel_on_card(B, S, H, P, N, chunk, dtype):
     (1024, 128, 256, "float32"), (256, 64, 64, "bfloat16"),
     (128, 32, 128, "int8"), (96, 33, 32, "int8"), (99, 37, 3, "int8"),
     (4096, 4096, 256, "bfloat16"), (40, 4104, 5, "bfloat16"),
-    (60, 40001, 6, "int8")])
+    (60, 40001, 6, "int8"), (8, 16384, 1, "int8"), (3, 16385, 1, "int8"),
+    (8, 32768, 2, "int8"), (3, 65537, 1, "int8")])
 def test_dma_copy_kernel_on_card(mode, R, C, blk, dtype):
     """Byte-exact, with tiles of one TMA piece, of two (fewer than the
-    explicit kernel's ring of four), of many (the ring wraps), and tiles at
-    offsets that are not multiples of 16 bytes."""
+    explicit kernel's ring of four), of many (the ring wraps), tiles at
+    offsets that are not multiples of 16 bytes, and tiles of exactly one and
+    four pipelined slices (16 KiB each) and of one byte more."""
     _need_card()
     x = dma_both(R, C, dtype, seed=3)[0].to("cuda")
     before = launches[f"dma_copy_{mode}"]
