@@ -38,22 +38,41 @@ D2. the two DMA-copy kernels (pipelined, explicit TMA) held byte for byte
     torch.profiler's device time, with each copy's grid and blocks resident
     per SM and its time against ``copy_``;
 
+G. ``ExecGraph``'s three launch modes (``src/repro_torch/core/graphs.py``),
+   a chain of K identical nodes of the hand-written node kernel
+   (``kernels/csrc/exec_graph.cu``) at width 4096: each mode's result
+   against ``reference()`` to rtol 1e-5, doorbells K / 1 / 1, and the
+   footprint law of ``tests/test_core_graphs.py`` at K = 8 and 32 (per_op
+   bytes x4, graphed growing, multistep below 1.1x), the footprint read from
+   the graphs themselves; then the paper's Figure 7 sweep
+   (``benchmarks/bench_graphs.py``'s chains, K = 1-2000, per_op to 500): one
+   line per (mode, K) with launch and completion us, bytes, nodes,
+   doorbells and upload ms, and a fit of launch time over footprint per
+   mode;
+
 then, for each serving path, gemma-2b (dense, flash attention) and
 mamba2-780m (SSD scan), both at full published width:
 
 4. build the model from the port's seeded on-device init;
 5. serve 4 ragged requests through ``Server.serve`` at tokens_per_launch 1
-   and 4 (the main path): tokens equal, doorbells ``1 + ceil(31 / T)``, and
+   and 4 (the main path), twice per Server: the first serve captures its
+   CUDA graphs, the second replays them under torch.profiler.  Tokens of
+   both serves equal an eager greedy loop's, doorbells ``1 + ceil(31 / T)``,
    the path's kernels launched during each serve (counts zeroed just before
-   each serve and read just after);
+   each serve and read just after), and the replayed serve's counted
+   launches equal the profiler's count of the same kernels, by name; each
+   graph's node count a replay;
 6. hold the kernel route (``impl="cuda"``) against the plain route
    (``impl="ref"``) on the same weights: bf16 prefill logits, then the fp32
    variant's prefill logits and 8 greedy tokens.  The routes differ in the
    prefill's kernel (flash attention vs dense softmax; SSD kernel vs plain
    chunked scan); every norm goes through the RMSNorm kernel on both, which
    phase 3 holds against its plain version;
-7. time the path (prefill, decode, tokens/s, device time by kernel and the
-   path's kernels' share of it);
+7. time both routes: the model's eager calls (prefill, decode) and the
+   servers' graph replays (prefill, decode per step at T = 1 and 4, device
+   busy over one decode replay), device time by kernel and the path's
+   kernels' share of it; then one warm serve per Server (tokens/s) beside
+   the capturing serve's wall time;
 
 and last, time each kernel at its path's shape beside its bound, its plain
 version and one library call where there is one (the DMA-copy kernels are
@@ -89,6 +108,8 @@ from repro_torch.configs import ARCHS, ModelConfig  # noqa: E402
 from repro_torch.core import (H100_SXM, INLINE_THRESHOLD_DEFAULT,  # noqa: E402
                               HybridMover, TraceSession, direct_put,
                               inline_put, sweep_transfer)
+from repro_torch.core.graphs import (LAUNCH_MODES, ExecGraph,  # noqa: E402
+                                     MultiStepLauncher)
 from repro_torch.kernels import _build, launches, reset_launches  # noqa: E402
 from repro_torch.kernels.dma_copy.ops import MODES, dma_copy, occupancy  # noqa: E402
 from repro_torch.kernels.dma_copy.ref import dma_copy_tiled  # noqa: E402
@@ -106,6 +127,13 @@ TOL = {"rms_norm": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
        "flash_attention": {torch.float32: 3e-5, torch.bfloat16: 3e-2},
        "ssd_scan": {torch.float32: 1e-3, torch.bfloat16: 6e-2}}
 NEW_TOKENS = 32
+# phase G: benchmarks/bench_graphs.py's chains and width (Figure 7)
+GRAPH_WIDTH = 4096
+GRAPH_LAW_CHAINS = (8, 32)                  # tests/test_core_graphs.py
+GRAPH_CHAINS = [1, 10, 25, 50, 100, 200, 500, 1000, 2000]
+GRAPH_PER_OP_MAX = 500
+GRAPH_REPS = 20
+PROFILE_MARGIN_S = 0.05
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +172,14 @@ MAMBA = ServePath("mamba2-780m", (257, 512, 800, 1024), 1056,
                   control={"ssm_chunk": 128})
 CONTROL_FACTOR = 3.0
 PATHS = (GEMMA, MAMBA)
+# the kernels behind each counted name, as torch.profiler names them: one
+# launch of each per counted launch (an SSD call at the path's shape, four
+# chunks, launches all five)
+KERNEL_SYMBOLS = {"rms_norm": ("rms_norm_kernel",),
+                  "flash_attention": ("flash_attention_",),
+                  "ssd_scan": ("ssd_scan_cumsum_kernel", "ssd_scan_cb_kernel",
+                               "ssd_scan_state_kernel", "ssd_scan_pass_kernel",
+                               "ssd_scan_out_kernel")}
 
 # D1: benchmarks/bench_dma.py's sizes (Figure 6; Table 2's right half)
 EXP_SIZES = [4 * 2**i for i in range(13)]               # 4 B .. 16 KiB
@@ -561,6 +597,146 @@ def copy_path(card: str, device: torch.device) -> List[Dict[str, Any]]:
     return entries
 
 
+# ---------------------------------------------------------------- phase G
+def exec_graphs(card: str, device: torch.device) -> Dict[str, int]:
+    """Phase G, on one session: each mode against ``reference()``, its
+    doorbells and the footprint law at K = 8 and 32; then the paper's Figure
+    7 sweep (``benchmarks/bench_graphs.py``'s chains) with a fit of launch
+    time over footprint per mode.  Returns the kernel launches of the phase
+    (counts zeroed just before, read just after)."""
+    reset_launches()
+    launched = 0
+    with TraceSession("graphs") as sess:
+        law = {}
+        for K in GRAPH_LAW_CHAINS:
+            g = ExecGraph(K, GRAPH_WIDTH, device)
+            for mode in LAUNCH_MODES:
+                y, st = g.launch(mode, session=sess)
+                launched += 1
+                torch.testing.assert_close(y, g.reference(), rtol=1e-5, atol=0)
+                if st.doorbells != (K if mode == "per_op" else 1):
+                    raise AssertionError(f"{mode} K={K}: {st.doorbells} "
+                                         f"doorbells")
+                law[mode, K] = st.command_bytes
+                log(f"ExecGraph {mode} K={K}: equals reference(), "
+                    f"{st.doorbells} doorbells, {st.command_bytes} B, "
+                    f"{st.n_ops} nodes")
+        lo, hi = GRAPH_LAW_CHAINS
+        ratio = law["multistep", hi] / law["multistep", lo]
+        if not (law["per_op", hi] == hi // lo * law["per_op", lo]
+                and law["graphed", hi] > law["graphed", lo] and ratio < 1.1):
+            raise AssertionError(f"footprint law broken: {law}")
+        log(f"footprint law holds from K={lo} to {hi}: per_op x"
+            f"{law['per_op', hi] / law['per_op', lo]:.2f}, graphed x"
+            f"{law['graphed', hi] / law['graphed', lo]:.2f}, multistep x"
+            f"{ratio:.4f}")
+        launched += launcher_check(device, sess)
+        fits: Dict[str, List[Tuple[int, float]]] = {m: [] for m in LAUNCH_MODES}
+        for K in GRAPH_CHAINS:
+            for mode in LAUNCH_MODES:
+                if mode == "per_op" and K > GRAPH_PER_OP_MAX:
+                    continue
+                g = ExecGraph(K, GRAPH_WIDTH, device)
+                g.upload(mode)
+                g.launch(mode, session=sess)                   # warm
+                runs = [g.launch(mode, session=sess) for _ in range(GRAPH_REPS)]
+                launched += 1 + GRAPH_REPS
+                y, st = runs[-1]
+                torch.testing.assert_close(y, g.reference(), rtol=1e-5, atol=0)
+                launch_us = float(np.median([r.launch_s for _, r in runs])) * 1e6
+                complete_us = float(np.median([r.complete_s for _, r in runs])) * 1e6
+                fits[mode].append((st.command_bytes, launch_us))
+                log(f"{card} | graph_{mode} K={K}: launch {launch_us:.2f} us, "
+                    f"complete {complete_us:.2f} us, {st.command_bytes} B, "
+                    f"{st.n_ops} nodes, {st.doorbells} doorbells, upload "
+                    f"{st.upload_s * 1e3:.3f} ms")
+        for mode, pts in fits.items():
+            b = np.asarray([p[0] for p in pts], float)
+            t = np.asarray([p[1] for p in pts], float)
+            if b.std() > 0:
+                slope, icpt = np.polyfit(b, t, 1)
+                r2 = np.corrcoef(b, t)[0, 1] ** 2
+                rate = (f"{1e6 / slope / 2**20:.1f} MiB/s of footprint"
+                        if slope > 0 else "no positive slope")
+                log(f"{card} | graph_fit_{mode}: launch us = {icpt:.3f} + "
+                    f"{slope * 1024:.4f} x KiB of footprint (r^2 {r2:.4f}); "
+                    f"{rate}")
+            else:
+                log(f"{card} | graph_fit_{mode}: footprint constant at "
+                    f"{b[0]:.0f} B; launch {t.min():.2f}-{t.max():.2f} us")
+        events = sess.summary()["by_kind"].get("graph_launch", 0)
+    if events != launched:
+        raise AssertionError(f"{launched} launches landed {events} "
+                             f"graph_launch events")
+    counts = dict(launches)
+    log(f"phase G: {launched} launches, {events} graph_launch events, kernel "
+        f"launches {counts}")
+    return counts
+
+
+def launcher_check(device: torch.device, sess: TraceSession) -> int:
+    """``MultiStepLauncher`` on the card: K=5 steps of ``(carry + b,
+    carry.sum())`` as one replay, twice with new inputs, against the same
+    steps run eagerly.  Returns its launches."""
+    def step(carry, b):
+        return carry + b, carry.sum()
+
+    launcher = MultiStepLauncher(step, k=5, session=sess, device=device)
+    g = torch.Generator(device=device).manual_seed(3)
+    for _ in range(2):
+        carry0 = torch.randn(4096, generator=g, device=device)
+        batches = torch.randn(5, 4096, generator=g, device=device)
+        carry, aux = launcher(carry0, batches)
+        want, sums = carry0, []
+        for b in batches:
+            want, s = step(want, b)
+            sums.append(s)
+        torch.testing.assert_close(carry, want, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(aux, torch.stack(sums), rtol=1e-5,
+                                   atol=1e-4)
+    if launcher.tracker.count != 2:
+        raise AssertionError(f"MultiStepLauncher: {launcher.tracker.count} "
+                             f"doorbells for 2 calls")
+    (step_graph, _), = launcher._graphs.values()
+    nbytes, nodes = step_graph.footprint()
+    log(f"MultiStepLauncher K=5 on the card: equals the eager steps, one "
+        f"doorbell a call, {nodes} graph nodes, {nbytes} B")
+    return 2
+
+
+def graph_entry(card: str, device: torch.device,
+                counts: Dict[str, int]) -> Dict[str, Any]:
+    """The node kernel at phase G's width: one node, its plain version
+    (``x.mul_(scale)``, the CPU route) and ``torch.mul`` on the same
+    inputs."""
+    g = ExecGraph(1, GRAPH_WIDTH, device)
+    x0 = torch.randn(GRAPH_WIDTH, device=device)
+    g.x.copy_(x0)
+    g.upload("per_op")
+    node = lambda: g._node(0, _build.stream_ptr(device))  # noqa: E731
+    node()
+    err = max_err(g.x, x0 * g.scales[0])
+    y = torch.empty_like(g.x)
+    e = {"name": "exec_graph", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/exec_graph.cu",
+         "replaces": "src/repro/core/graphs.py:77",
+         "max_abs_err": err,
+         "ms": device_ms(node),
+         "plain_ms": device_ms(lambda: g.x.mul_(g.scales[0])),
+         "call_ms": time_ms(node, reps=100),
+         **roofline(2 * GRAPH_WIDTH * 4 + 8, 0),
+         "library_ms": device_ms(lambda: torch.mul(g.x, g.scales[0], out=y)),
+         "shape": f"width={GRAPH_WIDTH} f32, one node",
+         "launches_by_path": {"graphs": counts},
+         "launches": counts.get("exec_graph", 0)}
+    log(f"{card} | exec_graph node at {e['shape']}: device {e['ms']:.5f} ms "
+        f"(per call with host {e['call_ms']:.5f} ms), bound "
+        f"{e['bound_ms']:.5f} ms, plain {e['plain_ms']:.5f} ms, torch.mul "
+        f"{e['library_ms']:.5f} ms, max|err| {err:.3e}, launches in phase G "
+        f"{e['launches']}")
+    return e
+
+
 # ---------------------------------------------------------------- phase 5
 def requests(path: ServePath, vocab: int, seed: int = 0) -> List[Request]:
     rng = np.random.default_rng(seed)
@@ -577,36 +753,75 @@ def padded_prompts(reqs: List[Request], device: torch.device) -> torch.Tensor:
     return torch.from_numpy(toks).to(device)
 
 
+def profiled_counts(rows, names: Tuple[str, ...]) -> Dict[str, Dict[str, int]]:
+    """torch.profiler's launch count of each kernel symbol of each counted
+    kernel name (``KERNEL_SYMBOLS``) in ``rows``."""
+    return {name: {sym: sum(e.count for e in rows if sym in e.key)
+                   for sym in KERNEL_SYMBOLS[name]} for name in names}
+
+
 def serve_main_path(path: ServePath, cfg: ModelConfig, params,
-                    device: torch.device
-                    ) -> Dict[int, Tuple[Dict[str, Any], Dict[str, int], list]]:
-    """Serve at T=1 and T=4; counters are zeroed just before each serve."""
-    runs = {}
+                    device: torch.device) -> Dict[int, Dict[str, Any]]:
+    """Serve twice at T=1 and at T=4 with one Server each: the first serve
+    captures the graphs, the second replays them under torch.profiler.
+    Counters are zeroed just before each serve and read just after."""
+    model = get_model(cfg, impl="cuda", device=device)
+    _, eager = greedy(model, params, padded_prompts(
+        requests(path, cfg.vocab_size), device), NEW_TOKENS, path.max_seq)
+    runs: Dict[int, Dict[str, Any]] = {}
     for T in (1, 4):
         srv = Server(cfg, batch_size=len(path.prompt_lens),
                      max_seq=path.max_seq, tokens_per_launch=T, device=device,
                      params=params)
-        reqs = requests(path, cfg.vocab_size)
-        reset_launches()
-        metrics = srv.serve(reqs)
-        counts = dict(launches)
-        runs[T] = (metrics, counts, [r.tokens for r in reqs])
-        log(f"{cfg.name} serve T={T}: {metrics} kernel launches {counts}")
-    if runs[1][2] != runs[4][2]:
-        raise AssertionError(f"{cfg.name}: tokens differ between T=1 and T=4")
-    for T, (m, c, toks) in runs.items():
+        serves: List[Dict[str, Any]] = []
+        for replay in (False, True):
+            reqs = requests(path, cfg.vocab_size)
+            serve: Dict[str, Any] = {}
+            reset_launches()
+            if replay:
+                rows, _ = _profile(
+                    lambda: serve.update(metrics=srv.serve(reqs)),
+                    warmup=False)
+            else:
+                serve["metrics"] = srv.serve(reqs)
+            serve["counts"] = dict(launches)
+            serve["tokens"] = [r.tokens for r in reqs]
+            serves.append(serve)
+            log(f"{cfg.name} serve T={T} ({'replay' if replay else 'capture'})"
+                f": {serve['metrics']} kernel launches {serve['counts']}")
+        prof = profiled_counts(rows, path.kernels)
+        log(f"{cfg.name} serve T={T} replay: torch.profiler counts {prof}")
+        for name, by_sym in prof.items():
+            want = serves[1]["counts"].get(name, 0)
+            if any(n != want for n in by_sym.values()):
+                raise AssertionError(f"{cfg.name} T={T}: {want} counted "
+                                     f"{name} launches, the profiler saw "
+                                     f"{by_sym}")
+        for label, g in srv.graphs().items():
+            nbytes, nodes = g.footprint()
+            log(f"{cfg.name} T={T} graph {label}: {nodes} nodes a replay, "
+                f"{nbytes} B verbose description, capture+upload "
+                f"{g.upload_s * 1e3:.1f} ms")
+        runs[T] = {"server": srv, "serves": serves}
+    for T, run in runs.items():
         want = 1 + math.ceil((NEW_TOKENS - 1) / T)
-        if m["doorbells"] != want:
-            raise AssertionError(f"{cfg.name} T={T}: {m['doorbells']} "
-                                 f"doorbells, expected {want}")
-        for name in path.kernels:
-            if c.get(name, 0) < 1:
-                raise AssertionError(f"{cfg.name} T={T}: kernel {name} was "
-                                     f"not launched")
-        if any(len(t) != NEW_TOKENS or not all(0 <= x < cfg.vocab_size
-                                               for x in t) for t in toks):
-            raise AssertionError(f"{cfg.name} T={T}: tokens out of range or "
-                                 f"short")
+        for serve in run["serves"]:
+            if serve["metrics"]["doorbells"] != want:
+                raise AssertionError(f"{cfg.name} T={T}: "
+                                     f"{serve['metrics']['doorbells']} "
+                                     f"doorbells, expected {want}")
+            for name in path.kernels:
+                if serve["counts"].get(name, 0) < 1:
+                    raise AssertionError(f"{cfg.name} T={T}: kernel {name} "
+                                         f"was not launched")
+            if serve["tokens"] != eager:
+                raise AssertionError(f"{cfg.name} T={T}: served tokens differ "
+                                     f"from the eager greedy loop")
+    if any(len(t) != NEW_TOKENS or not all(0 <= x < cfg.vocab_size for x in t)
+           for t in eager):
+        raise AssertionError(f"{cfg.name}: tokens out of range or short")
+    log(f"{cfg.name}: tokens of both serves at T=1 and T=4 equal the eager "
+        f"greedy loop's")
     return runs
 
 
@@ -705,18 +920,24 @@ def compare_routes(path: ServePath, cfg: ModelConfig, params,
 
 
 # ---------------------------------------------------------------- phase 7
-def _profile(fn: Callable[[], Any], reps: int = 1):
+def _profile(fn: Callable[[], Any], reps: int = 1, warmup: bool = True):
     """Kernel rows of torch.profiler over ``reps`` calls of ``fn`` (after one
-    warm-up call), and the host wall time of the window in us."""
+    warm-up call, unless ``warmup`` is false), and the host wall time of the
+    window in us."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # margins inside the trace window, outside the timed one: the tracer
+        # drops device records whose converted timestamps fall outside it
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        time.sleep(PROFILE_MARGIN_S)
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     return rows, wall_us
@@ -737,10 +958,11 @@ def device_ms_by_kernel(fn: Callable[[], Any], reps: int = 20
 
 
 def profile_window(fn: Callable[[], Any], label: str, top: int = 8,
-                   kernels: Tuple[str, ...] = ()) -> None:
+                   kernels: Tuple[str, ...] = ()) -> float:
     """Device time by kernel over one call of ``fn``, the device's busy share
     of the window's wall time (one stream: kernels do not overlap), and the
-    share of device time taken by each kernel named in ``kernels``."""
+    share of device time taken by each kernel named in ``kernels``.
+    Returns the busy share."""
     rows, wall_us = _profile(fn)
     busy_us = sum(e.self_device_time_total for e in rows)
     log(f"{label}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f}"
@@ -754,36 +976,72 @@ def profile_window(fn: Callable[[], Any], label: str, top: int = 8,
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:top]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
+    return busy_us / wall_us
 
 
 def time_path(path: ServePath, cfg: ModelConfig, params,
-              device: torch.device) -> Dict[str, float]:
+              device: torch.device, runs: Dict[int, Dict[str, Any]]
+              ) -> Dict[str, float]:
+    """Both routes: the model's eager calls, and the servers' graph
+    replays (one prefill, one T-step decode block); then a warm serve of
+    each server, unprofiled, for tokens/s."""
     model = get_model(cfg, impl="cuda", device=device)
     toks = padded_prompts(requests(path, cfg.vocab_size), device)
     prefill_ms = time_ms(lambda: model.prefill(params, toks, path.max_seq),
                          reps=5)
     state, logits = model.prefill(params, toks, path.max_seq)
     nxt = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
-    step = {"state": state}
 
     def one_step():
-        step["state"], _ = model.decode_step(params, step["state"], nxt)
+        model.decode_step(params, state, nxt)
     decode_ms = time_ms(one_step, reps=16, warmup=2)
     profile_window(lambda: model.prefill(params, toks, path.max_seq),
-                   f"{cfg.name} prefill profile", kernels=path.kernels)
-    profile_window(one_step, f"{cfg.name} decode step profile")
-    srv = Server(cfg, batch_size=len(path.prompt_lens), max_seq=path.max_seq,
-                 tokens_per_launch=1, device=device, params=params)
-    m = srv.serve(requests(path, cfg.vocab_size))
-    return {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
-            "serve_wall_s": m["wall_s"],
-            "tokens_per_s": m["new_tokens"] / m["wall_s"]}
+                   f"{cfg.name} prefill profile (eager)", kernels=path.kernels)
+    profile_window(one_step, f"{cfg.name} decode step profile (eager)")
+    del state, logits
+
+    out = {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms}
+    S = max(path.prompt_lens)
+    graphs = {T: run["server"].graphs() for T, run in runs.items()}
+    prefill = graphs[1][f"prefill S={S}"]
+    out["replay_prefill_ms"] = time_ms(prefill, reps=5)
+    profile_window(prefill, f"{cfg.name} prefill profile (one replay)",
+                   kernels=path.kernels)
+    for T in runs:
+        decode = graphs[T][f"decode T={T}"]
+        out[f"replay_decode_ms_per_step_T{T}"] = time_ms(
+            decode, reps=16 // T, warmup=2) / T
+        profile_window(decode, f"{cfg.name} decode T={T} profile (one "
+                       f"replay)")
+        # busy: the replay's kernel time over its span on the device (CUDA
+        # events around one replay), both without the profiler's own cost
+        busy_ms = device_ms(decode, reps=4)
+        span_ms = time_ms(decode, reps=1, warmup=1)
+        out[f"replay_decode_busy_T{T}"] = busy_ms / span_ms
+        log(f"{cfg.name} decode T={T} replay: {busy_ms:.3f} ms of kernels in "
+            f"a {span_ms:.3f} ms span, device busy {busy_ms / span_ms:.1%}")
+    for T, run in runs.items():
+        reqs = requests(path, cfg.vocab_size)
+        m = run["server"].serve(reqs)
+        if [r.tokens for r in reqs] != run["serves"][0]["tokens"]:
+            raise AssertionError(f"{cfg.name} T={T}: the warm serve's tokens "
+                                 f"differ")
+        # host time to enqueue each doorbell (one replay) of the warm serve
+        recs = run["server"].tracker.records[-m["doorbells"]:]
+        out[f"replay_enqueue_us_prefill_T{T}"] = recs[0].dispatch_s * 1e6
+        out[f"replay_enqueue_us_decode_T{T}"] = float(np.median(
+            [r.dispatch_s for r in recs[1:]])) * 1e6
+        out[f"warm_tokens_per_s_T{T}"] = m["new_tokens"] / m["wall_s"]
+        out[f"warm_serve_wall_s_T{T}"] = m["wall_s"]
+        out[f"capture_serve_wall_s_T{T}"] = run["serves"][0]["metrics"][
+            "wall_s"]
+    return out
 
 
 def drive_path(path: ServePath, card: str, device: torch.device
                ) -> Dict[int, Dict[str, int]]:
-    """Phases 4-7 for one path; returns the kernel launches of its T=1 and
-    T=4 serves."""
+    """Phases 4-7 for one path; returns the kernel launches of its serves
+    at T=1 and T=4 (the replayed serve, and the capturing one)."""
     log(f"phase 4: {path.arch} at full width, seeded on-device init")
     cfg = ARCHS[path.arch]
     params = get_model(cfg, impl="cuda", device=device).init_params(seed=0)
@@ -796,16 +1054,31 @@ def drive_path(path: ServePath, card: str, device: torch.device
     log(f"phase 6: {path.arch} kernel route against the plain route")
     compare_routes(path, cfg, params, device)
     log(f"phase 7: {path.arch} timings")
-    t = time_path(path, cfg, params, device)
+    t = time_path(path, cfg, params, device, runs)
     B = len(path.prompt_lens)
     log(f"{card} | {cfg.name} B={B} prompts {path.prompt_lens} new "
-        f"{NEW_TOKENS}: prefill {t['prefill_ms']:.3f} ms, decode "
-        f"{t['decode_ms_per_step']:.3f} ms/step ({B} tokens), "
-        f"{t['tokens_per_s']:.1f} tokens/s (serve wall "
-        f"{t['serve_wall_s']:.3f} s, T=1)")
-    del params, leaves
+        f"{NEW_TOKENS}: eager prefill {t['prefill_ms']:.3f} ms, decode "
+        f"{t['decode_ms_per_step']:.3f} ms/step ({B} tokens); replayed "
+        f"prefill {t['replay_prefill_ms']:.3f} ms, decode "
+        f"{t['replay_decode_ms_per_step_T1']:.3f} ms/step (T=1), "
+        f"{t['replay_decode_ms_per_step_T4']:.3f} ms/step (T=4), device busy "
+        f"over one decode replay {t['replay_decode_busy_T1']:.1%} (T=1), "
+        f"{t['replay_decode_busy_T4']:.1%} (T=4); warm serve "
+        f"{t['warm_tokens_per_s_T1']:.1f} tokens/s (wall "
+        f"{t['warm_serve_wall_s_T1']:.3f} s, T=1), "
+        f"{t['warm_tokens_per_s_T4']:.1f} tokens/s (wall "
+        f"{t['warm_serve_wall_s_T4']:.3f} s, T=4); capturing serve wall "
+        f"{t['capture_serve_wall_s_T1']:.3f} s (T=1), "
+        f"{t['capture_serve_wall_s_T4']:.3f} s (T=4); host time to enqueue "
+        f"a replay: prefill {t['replay_enqueue_us_prefill_T1']:.1f} us, "
+        f"decode median {t['replay_enqueue_us_decode_T1']:.1f} us (T=1), "
+        f"{t['replay_enqueue_us_decode_T4']:.1f} us (T=4)")
+    counts = {T: {"replay": run["serves"][1]["counts"],
+                  "capture": run["serves"][0]["counts"]}
+              for T, run in runs.items()}
+    del params, leaves, runs
     torch.cuda.empty_cache()
-    return {T: counts for T, (_, counts, _) in runs.items()}
+    return counts
 
 
 # ---------------------------------------------------------------- kernels
@@ -949,23 +1222,32 @@ def main() -> int:
     copy_checks(device)
     dma_kernels = copy_path(card, device)
 
+    log("phase G: ExecGraph's launch modes and the command-footprint law")
+    graph_counts = exec_graphs(card, device)
+
     counts = {path.arch: drive_path(path, card, device) for path in PATHS}
 
     log("kernels at their paths' shapes")
     kernels = [rms_entry(device), flash_entry(device), ssd_entry(device)]
     kernels[1]["long_s"] = flash_long(card, device)
     for e in kernels:
-        # launches: the T=1 serves of every path that runs the kernel
+        # launches: the replayed T=1 serves of every path that runs the
+        # kernel; by path, every serve
         e["launches_by_path"] = {
-            arch: {f"T={T}": c.get(e["name"], 0) for T, c in by_T.items()}
-            for arch, by_T in counts.items() if by_T[1].get(e["name"], 0)}
-        e["launches"] = sum(v["T=1"] for v in e["launches_by_path"].values())
+            arch: {f"T={T} {serve}": c.get(e["name"], 0)
+                   for T, by_serve in by_T.items()
+                   for serve, c in by_serve.items()}
+            for arch, by_T in counts.items()
+            if by_T[1]["replay"].get(e["name"], 0)}
+        e["launches"] = sum(v["T=1 replay"]
+                            for v in e["launches_by_path"].values())
         log(f"{card} | {e['name']} at {e['shape']}: device {e['ms']:.5f} ms "
             f"(per call with host {e['call_ms']:.5f} ms), bound "
             f"{e['bound_ms']:.5f} ms ({e['bound_by']}), plain "
             f"{e['plain_ms']:.5f} ms, library {e['library_ms']}, launches "
             f"{e['launches_by_path']}")
     kernels += dma_kernels
+    kernels.append(graph_entry(card, device, graph_counts))
     for e in kernels:
         e["ptxas"] = {name: r for name, r in ptxas.items()
                       if name.split("<")[0] in REDESIGNED

@@ -1,6 +1,6 @@
 """Core: the unified trace session, the doorbell tracker, the paper's
-instruments (inline vs direct transfers, progress trackers) and the
-hardware peaks of roofline bounds."""
+instruments (inline vs direct transfers, graph launch modes, progress
+trackers) and the hardware peaks of roofline bounds."""
 from .session import (BARRIER_EVENT, EVENT_KINDS, SPAN_EVENT, JsonlSink,
                       RingBufferSink, Sink, SpanFrame, SpanHandle, TraceEvent,
                       TraceSession, ambient_span, current_session,
@@ -8,6 +8,8 @@ from .session import (BARRIER_EVENT, EVENT_KINDS, SPAN_EVENT, JsonlSink,
 from .dma import (HybridMover, INLINE_THRESHOLD_DEFAULT, TransferRecord,
                   direct_put, inline_put, sweep_transfer)
 from .doorbell import DoorbellRecord, DoorbellTracker, payload_bytes
+from .graphs import (LAUNCH_MODES, CapturedStep, ExecGraph, LaunchStats,
+                     MultiStepLauncher)
 from .roofline import H100_SXM, HW, model_flops
 from .semaphore import Heartbeat, ProgressTracker, SemaphoreToken
 
@@ -18,6 +20,8 @@ __all__ = [
     "HybridMover", "INLINE_THRESHOLD_DEFAULT", "TransferRecord",
     "direct_put", "inline_put", "sweep_transfer",
     "DoorbellRecord", "DoorbellTracker", "payload_bytes",
+    "LAUNCH_MODES", "CapturedStep", "ExecGraph", "LaunchStats",
+    "MultiStepLauncher",
     "H100_SXM", "HW", "model_flops",
     "Heartbeat", "ProgressTracker", "SemaphoreToken",
 ]

@@ -38,7 +38,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, wait
 from ..kernels import _build, launches
 from .session import TraceSession, resolve_session
 
@@ -155,11 +155,6 @@ def _canonical(device: Optional[Any]) -> torch.device:
     return dev
 
 
-def _wait(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.current_stream(dev).synchronize()
-
-
 def _emit_transfer(session: Optional[TraceSession], rec: TransferRecord,
                    t: float) -> None:
     sess = resolve_session(session)
@@ -205,7 +200,7 @@ def inline_put(x: np.ndarray, device: Optional[Any] = None,
     t1 = time.perf_counter()
     staged.dispatch()
     t2 = time.perf_counter()
-    _wait(dev)
+    wait(dev)
     t3 = time.perf_counter()
     rec = _record("inline", x.nbytes, build_s, t1, t2, t3)
     _emit_transfer(session, rec, t=t1)
@@ -223,7 +218,7 @@ def direct_put(x: np.ndarray, device: Optional[Any] = None,
     t1 = time.perf_counter()
     out = src.to(dev) if dev.type == "cuda" else src.clone()
     t2 = time.perf_counter()
-    _wait(dev)
+    wait(dev)
     t3 = time.perf_counter()
     rec = _record("direct", x.nbytes, 0.0, t1, t2, t3)
     _emit_transfer(session, rec, t=t1)

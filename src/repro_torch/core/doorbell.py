@@ -3,9 +3,8 @@
 In the paper, the doorbell write is the driver's final commit point for a
 submission cycle; counting doorbell writes counts submission cycles.  In the
 port a doorbell is one call of a wrapped host function that submits work to
-the CUDA stream.  PyTorch runs eagerly, so one such call still issues many
-kernel launches (every matrix product, norm and attention of every layer);
-capturing a call as one CUDA Graph replay is a later step.
+the CUDA stream: in the server, one CUDA Graph replay of the prefill or of a
+T-step decode block (``core/graphs.py``), however many kernels it holds.
 
 :class:`DoorbellTracker` owns that dispatch boundary: callables wrapped by a
 tracker ring its doorbell on every call, recording the submission timestamp,

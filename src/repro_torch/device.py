@@ -15,7 +15,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "wait"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
@@ -31,3 +31,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def wait(device: torch.device) -> None:
+    """Wait for the work queued on ``device``'s current stream (nothing to
+    wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()

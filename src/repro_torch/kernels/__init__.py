@@ -7,7 +7,9 @@ the CPU; for a CUDA tensor it launches the kernel or raises.
 
 ``launches`` counts kernel launches by name; a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its path went
-through the kernels.
+through the kernels.  Under a CUDA Graph capture the wrappers' adds happen
+once and launch nothing: ``core.graphs.CapturedStep`` takes them back and
+adds them again at every replay.
 """
 from __future__ import annotations
 

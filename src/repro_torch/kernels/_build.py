@@ -111,6 +111,23 @@ def library() -> ctypes.CDLL:
     lib.inline_put_prepare.restype = i32
     lib.inline_put_launch.argtypes = [ptr, i64, ptr, ptr]
     lib.inline_put_launch.restype = i32
+    lib.exec_graph_prepare.argtypes = []
+    lib.exec_graph_node.argtypes = [ptr, ptr, ptr, i32, ptr]
+    lib.exec_graph_multistep_build.argtypes = [ptr, ptr, ptr, i32, i32, ptr,
+                                               ctypes.POINTER(ptr)]
+    lib.exec_graph_multistep_launch.argtypes = [ptr, ptr]
+    lib.exec_graph_multistep_graphs.argtypes = [ptr, ctypes.POINTER(ptr),
+                                                ctypes.POINTER(ptr)]
+    lib.exec_graph_multistep_graphs.restype = None
+    lib.exec_graph_multistep_destroy.argtypes = [ptr]
+    lib.graph_footprint.argtypes = [ptr, ctypes.c_char_p, ctypes.POINTER(i64),
+                                    ctypes.POINTER(i64)]
+    lib.graph_upload.argtypes = [ptr, ptr]
+    for fn in (lib.exec_graph_prepare, lib.exec_graph_node,
+               lib.exec_graph_multistep_build, lib.exec_graph_multistep_launch,
+               lib.exec_graph_multistep_destroy, lib.graph_footprint,
+               lib.graph_upload):
+        fn.restype = i32
     lib.kernels_error_string.argtypes = [i32]
     lib.kernels_error_string.restype = ctypes.c_char_p
     return lib

@@ -6,6 +6,7 @@ RMSNorm kernel's wrapper.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -146,13 +147,19 @@ def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 # --------------------------------------------------------------------------
 # embeddings / unembedding
 # --------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype`` on the host, as a Python float."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
 def embed(p: Params, tokens: torch.Tensor, scale: bool = False
           ) -> torch.Tensor:
     x = p["embed"][tokens]
     if scale:
-        # sqrt(d) rounded to the activation type, as the reference does
-        x = x * torch.tensor(x.shape[-1] ** 0.5, dtype=x.dtype,
-                             device=x.device)
+        # sqrt(d) rounded to the activation type, as the reference does; a
+        # Python scalar, so no host->device copy (a CUDA graph can capture it)
+        x = x * _rounded(x.shape[-1] ** 0.5, x.dtype)
     return x
 
 

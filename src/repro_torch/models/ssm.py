@@ -83,17 +83,24 @@ class MambaLM:
         del max_seq
         return init_ssm_state(self.cfg, batch, dtype_of(self.cfg), self.device)
 
-    def prefill(self, params: Params, tokens: torch.Tensor, max_seq: int
+    def prefill(self, params: Params, tokens: torch.Tensor, max_seq: int,
+                state: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """Run the prompt; returns (state, last logits).
 
         As in the reference (``repro.models.ssm.MambaLM.prefill``), the
-        returned decode state is fresh and zero: decode does not start from
-        the prompt's final SSM state or conv windows.
+        decode state is zero: decode does not start from the prompt's final
+        SSM state or conv windows.  A given ``state`` (from
+        :meth:`init_decode_state`) is zeroed in place and returned, so its
+        addresses stay fixed; without it a fresh one is allocated.
         """
         x = self.hidden_states(params, tokens)
         logits = unembed(params["emb"], x[:, -1:, :])
-        return self.init_decode_state(tokens.shape[0], max_seq), logits
+        if state is None:
+            return self.init_decode_state(tokens.shape[0], max_seq), logits
+        for v in state.values():
+            v.zero_()
+        return state, logits
 
     def decode_step(self, params: Params, state: Dict[str, torch.Tensor],
                     tokens: torch.Tensor

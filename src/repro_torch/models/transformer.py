@@ -111,21 +111,40 @@ class TransformerLM:
         return init_kv_cache(self.cfg, batch, max_seq, dtype_of(self.cfg),
                              self.device)
 
-    def prefill(self, params: Params, tokens: torch.Tensor, max_seq: int
+    def prefill(self, params: Params, tokens: torch.Tensor, max_seq: int,
+                state: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """Run the prompt, building the KV cache; returns (state, last logits)."""
-        x = embed(params["emb"], tokens, self.cfg.embed_scale)
-        return self.prefill_embeds(params, x, max_seq)
+        """Run the prompt, building the KV cache; returns (state, last logits).
 
-    def prefill_embeds(self, params: Params, x: torch.Tensor, max_seq: int
+        ``state`` (from :meth:`init_decode_state`) is filled in place and
+        returned; without it a fresh one is allocated.
+        """
+        x = embed(params["emb"], tokens, self.cfg.embed_scale)
+        return self.prefill_embeds(params, x, max_seq, state)
+
+    def prefill_embeds(self, params: Params, x: torch.Tensor, max_seq: int,
+                       state: Optional[Dict[str, torch.Tensor]] = None
                        ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """Prefill from embeddings [B, S, D]; the cache holds positions < S."""
+        """Prefill from embeddings [B, S, D]; the cache holds positions < S.
+
+        A given ``state`` is zeroed and filled in place, so its addresses stay
+        fixed (a CUDA graph can capture the call): the cache starts from
+        zeros, as the reference's fresh cache does.
+        """
         cfg = self.cfg
         B, S = x.shape[:2]
         if S > max_seq:
             raise ValueError(f"prompt length {S} exceeds max_seq={max_seq}")
         positions = torch.arange(S, device=x.device)[None, :]
-        state = self.init_decode_state(B, max_seq)
+        if state is None:
+            state = self.init_decode_state(B, max_seq)
+        else:
+            want = (cfg.n_layers, B, max_seq, cfg.n_kv_heads, cfg.hd)
+            if tuple(state["k"].shape) != want:
+                raise ValueError(f"decode state {tuple(state['k'].shape)} does "
+                                 f"not fit batch {B} and max_seq {max_seq}")
+            state["k"].zero_()
+            state["v"].zero_()
         for i in range(cfg.n_layers):
             x, k, v = block_forward(layer_params(params["layers"], i), cfg, x,
                                     positions, self.impl)
@@ -133,7 +152,7 @@ class TransformerLM:
             state["v"][i, :, :S] = v
         x = rms_norm(params["final_norm"], x)
         logits = unembed(params["emb"], x[:, -1:, :])
-        state["length"] = torch.tensor(S, dtype=torch.int32, device=x.device)
+        state["length"].fill_(S)
         return state, logits
 
     def decode_step(self, params: Params, state: Dict[str, torch.Tensor],
@@ -141,8 +160,8 @@ class TransformerLM:
                     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """One token for every sequence. tokens: [B, 1].
 
-        The caches in ``state`` are updated in place; the returned state
-        shares them and carries ``length + 1``.
+        ``state`` is updated in place (the caches at ``length``, then
+        ``length + 1``) and returned.
         """
         cfg = self.cfg
         x = embed(params["emb"], tokens, cfg.embed_scale)
@@ -152,4 +171,5 @@ class TransformerLM:
                              state["k"][i], state["v"][i], length)
         x = rms_norm(params["final_norm"], x)
         logits = unembed(params["emb"], x)
-        return {"k": state["k"], "v": state["v"], "length": length + 1}, logits
+        length.add_(1)
+        return state, logits

@@ -17,9 +17,11 @@ import pytest
 import torch
 
 from repro.configs import SMOKE_ARCHS as REF_SMOKE
+from repro.models.layers import embed as ref_embed
 from repro.models.transformer import TransformerLM as RefLM
 from repro_torch.configs import SMOKE_ARCHS
 from repro_torch.models import TransformerLM, get_model
+from repro_torch.models.layers import embed
 from repro_torch.weights import params_from_jax
 
 ARCHS = ["gemma-2b", "qwen3-8b"]
@@ -160,3 +162,42 @@ def test_own_init_matches_reference_shapes_and_dtype():
     assert shapes_ours == shapes_ref
     for leaf in jax.tree_util.tree_leaves(ours):
         assert leaf.dtype == torch.bfloat16 and leaf.device.type == "cpu"
+
+
+def test_embed_scale_is_rounded_to_activation_type():
+    """sqrt(d) is rounded to bf16 before the multiply, as the reference
+    rounds ``jnp.asarray(sqrt(d), bf16)``: at gemma-2b's d=2048 the factor
+    is 45.25, not 45.2548..., and the rounding shows in the output."""
+    rng = np.random.default_rng(5)
+    table = rng.standard_normal((16, 2048)).astype(np.float32)
+    toks = rng.integers(0, 16, size=(2, 7)).astype(np.int32)
+    p = {"embed": torch.from_numpy(table).to(torch.bfloat16)}
+    got = embed(p, torch.from_numpy(toks), scale=True)
+    want = ref_embed({"embed": jnp.asarray(table, jnp.bfloat16)},
+                     jnp.asarray(toks), scale=True)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+    unrounded = (p["embed"][torch.from_numpy(toks)].float()
+                 * 2048 ** 0.5).to(torch.bfloat16)
+    assert not torch.equal(got, unrounded)
+
+
+def test_bf16_embed_scale_keeps_reference_logits_and_tokens():
+    """gemma-smoke widened to d_model 128, where sqrt(d) = 11.3137 is no
+    bf16 value (it rounds to 11.3125): bf16 prefill logits within the bf16
+    tolerance and 8 greedy tokens equal to the reference's."""
+    cfg = dataclasses.replace(SMOKE_ARCHS["gemma-2b"], d_model=128)
+    ref = Ref(dataclasses.replace(REF_SMOKE["gemma-2b"], d_model=128))
+    params = params_from_jax(jax.tree_util.tree_map(np.asarray, ref.params),
+                             cfg, "cpu")
+    model = TransformerLM(cfg, device="cpu")
+    toks = tokens(2, 9, cfg.vocab_size)
+    rs, rl = ref.prefill(ref.params, jnp.asarray(toks), MAX_SEQ)
+    ps, pl = model.prefill(params, torch.from_numpy(toks), MAX_SEQ)
+    close(pl, rl, TOL["bfloat16"])
+    for _ in range(8):
+        rn = np.asarray(jnp.argmax(rl[:, -1:, :], axis=-1)).astype(np.int32)
+        pn = torch.argmax(pl[:, -1:, :], dim=-1).to(torch.int32)
+        np.testing.assert_array_equal(pn.numpy(), rn)
+        rs, rl = ref.decode_step(ref.params, rs, jnp.asarray(rn))
+        ps, pl = model.decode_step(params, ps, pn)
