@@ -16,7 +16,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    paths' shapes and at ragged ones (flash: S of 1, 17, 100 and 1000, which
    are not multiples of the 16x8 fragments or the 64-key tiles, at hd 64,
    128 and 256 and Hkv 1, 2 and 8; SSD: a ragged chunk, chunks of 16 and 64,
-   16 chunks, H = 3 and 11, P < 64 and N < 128);
+   16 chunks, H = 3 and 11, P < 64 and N < 128), and at the continuous
+   engine's batch-1 prefills (flash at S = 4, 8, 128, 256 and 512 with
+   gemma-2b's heads; the SSD scan at chunk = S = 4 and 8 and at S = 128,
+   256 and 512);
 
 then the paper's DMA case study (section 6.2):
 
@@ -74,6 +77,38 @@ mamba2-780m (SSD scan), both at full published width:
    kernels' share of it; then one warm serve per Server (tokens/s) beside
    the capturing serve's wall time;
 
+then phase C, continuous batching (``ContinuousBatchingServer`` on
+``DenseKV``: one prefill graph per prompt length, one decode graph over all
+slots for the engine's life), for gemma-2b and mamba2-780m at full width in
+bf16:
+
+C1. ``benchmarks/bench_loadtest.py``'s traffic and engine (32 requests,
+    prompts of 4 and 8, budgets of 5 and 9, 4 slots, max_seq 64) at T = 1,
+    4 and 8: a warm replay, then the measured one (counts zeroed just
+    before, read just after), both synchronous: 32 completed, 224 tokens,
+    doorbells 84 / 45 / 40 (the reference's BENCH_10 rows), prefills plus
+    decodes, two prefill graphs and the decode graph never captured again;
+    the counted launches equal torch.profiler's over the same traffic
+    replayed again in one profiler window; at T=1 the
+    first 4 requests against a one-shot ``Server(batch_size=1)`` on the
+    engine's params (equal tokens, or a first difference at a near-tie:
+    the one-shot's top-2 logit gap below one bf16 step of its top logit);
+C2. realistic traffic (prompts of 128, 256 and 512, budgets of 32, 64 and
+    128, 8 slots, max_seq 1024; 64 requests for gemma-2b, 32 for
+    mamba2-780m) at T = 1 and 4: a synchronous replay, device busy over one
+    decode replay and the host gap between decode launches (the
+    ``serve.decode_iter`` spans and launch-to-launch times against one
+    replay), at T=1 the one-shot check, then a realtime replay at half the
+    requests/s the synchronous one sustained with the live endpoint polled
+    once on 127.0.0.1 from the decode loop, once 4 of the replay's requests
+    have finished: the snapshot's active slots, done tickets,
+    ``serve.finish`` events, tokens and dispatches equal the engine's at
+    that moment;
+C1 fp32: gemma-2b in fp32 on C1's spec at T=1, its first 8 requests equal
+    to the one-shot's exactly;
+
+one ``<card> | loadtest <arch> T=<T> spec=<spec>: ...`` line per replay;
+
 and last, time each kernel at its path's shape beside its bound, its plain
 version and one library call where there is one (the DMA-copy kernels are
 timed in D2), and the flash kernel at B=1, S=4096 beside
@@ -86,14 +121,17 @@ script exits non-zero before printing any result.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import re
 import subprocess
 import sys
 import time
+import urllib.request
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -106,8 +144,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import ARCHS, ModelConfig  # noqa: E402
 from repro_torch.core import (H100_SXM, INLINE_THRESHOLD_DEFAULT,  # noqa: E402
-                              HybridMover, TraceSession, direct_put,
-                              inline_put, sweep_transfer)
+                              SPAN_EVENT, HybridMover, TraceSession,
+                              direct_put, inline_put, sweep_transfer)
 from repro_torch.core.graphs import (LAUNCH_MODES, ExecGraph,  # noqa: E402
                                      MultiStepLauncher)
 from repro_torch.kernels import _build, launches, reset_launches  # noqa: E402
@@ -121,7 +159,9 @@ from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import mamba as mamba_block_module  # noqa: E402
-from repro_torch.runtime.server import Request, Server  # noqa: E402
+from repro_torch.runtime.server import (ContinuousBatchingServer,  # noqa: E402
+                                        Request, Server)
+from repro_torch.runtime.traffic import TrafficSpec, generate, replay  # noqa: E402
 
 TOL = {"rms_norm": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
        "flash_attention": {torch.float32: 3e-5, torch.bfloat16: 3e-2},
@@ -134,6 +174,7 @@ GRAPH_CHAINS = [1, 10, 25, 50, 100, 200, 500, 1000, 2000]
 GRAPH_PER_OP_MAX = 500
 GRAPH_REPS = 20
 PROFILE_MARGIN_S = 0.05
+SENTINELS, SENTINEL = 64, "spin_kernel"     # torch.cuda._sleep's kernel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,6 +221,33 @@ KERNEL_SYMBOLS = {"rms_norm": ("rms_norm_kernel",),
                   "ssd_scan": ("ssd_scan_cumsum_kernel", "ssd_scan_cb_kernel",
                                "ssd_scan_state_kernel", "ssd_scan_pass_kernel",
                                "ssd_scan_out_kernel")}
+# an SSD call over one chunk (every prefill of C1, prompts of 4 and 8) runs
+# no state or state-passing kernel
+MULTI_CHUNK_ONLY = ("ssd_scan_state_kernel", "ssd_scan_pass_kernel")
+
+# phase C: continuous batching.  C1 is benchmarks/bench_loadtest.py's
+# traffic and engine; the doorbells are the reference's BENCH_10 loadtest
+# rows (the schedule depends only on the drawn lengths and budgets, which do
+# not depend on the vocabulary).  C2 is realistic traffic at full width.
+C1_SPEC = dict(n_requests=32, rate=200.0, prompt_lens=(4, 8),
+               new_tokens=(5, 9), seed=0)
+C1_ENGINE = dict(batch_size=4, max_seq=64)
+C1_TS = (1, 4, 8)
+C1_DOORBELLS = {1: 84, 4: 45, 8: 40}
+C1_NEW_TOKENS = 224
+C2_SPEC = dict(prompt_lens=(128, 256, 512), new_tokens=(32, 64, 128), seed=0)
+C2 = {"gemma-2b": (dict(n_requests=64, **C2_SPEC),
+                   dict(batch_size=8, max_seq=1024)),
+      "mamba2-780m": (dict(n_requests=32, **C2_SPEC),
+                      dict(batch_size=8, max_seq=1024))}
+C2_TS = (1, 4)
+C_KERNELS = {"gemma-2b": ("rms_norm", "flash_attention"),
+             "mamba2-780m": ("rms_norm", "ssd_scan")}
+C_RING = 1 << 16                     # session events kept for the spans
+LIVE_POLL_AFTER = 4                  # C2 realtime: poll once 4 have finished
+# phase 3: the engine's per-request prefills, batch 1 (gemma-2b's heads for
+# flash; the mamba2-780m scan at chunk = min(256, S))
+PREFILL_LENS = (4, 8, 128, 256, 512)
 
 # D1: benchmarks/bench_dma.py's sizes (Figure 6; Table 2's right half)
 EXP_SIZES = [4 * 2**i for i in range(13)]               # 4 B .. 16 KiB
@@ -370,21 +438,29 @@ def check_kernels(device: torch.device) -> None:
     # lengths that cut a 16x8 fragment or a 64-key tile
     cases += [(S, Hkv, hd) for S in (1, 17, 100, 1000) for hd in (64, 128, 256)
               for Hkv in (1, 2, 8)]
-    for S, Hkv, hd in cases:
+    cases = [(4, S, Hkv, hd) for S, Hkv, hd in cases]
+    # the continuous engine's prefills: one request, gemma-2b's heads
+    gemma = ARCHS[GEMMA.arch]
+    cases += [(1, S, gemma.n_kv_heads, gemma.hd) for S in PREFILL_LENS]
+    for B, S, Hkv, hd in cases:
         for causal in (True, False):
             for dtype in dtypes:
-                q, k, v = flash_inputs(4, S, 8, Hkv, hd, dtype, device)
+                q, k, v = flash_inputs(B, S, 8, Hkv, hd, dtype, device)
                 out = flash_attention(q, k, v, causal=causal)
                 ref = flash_attention_ref(q, k, v, causal=causal)
                 tol = TOL["flash_attention"][dtype]
                 torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
                                            atol=tol)
-                log(f"flash B=4 S={S} H=8 Hkv={Hkv} hd={hd} causal={causal} "
+                log(f"flash B={B} S={S} H=8 Hkv={Hkv} hd={hd} causal={causal} "
                     f"{dtype}: max|err| {max_err(out, ref):.3e} (tol {tol})")
     # (B, S, H, P, N, chunk): the mamba path's shape; one ragged chunk
     # (Q = S = 255); small chunks (Q = 16); H = 3; P < 64 and N < 128; 16
     # chunks, so the state is passed 15 times; chunks of 64 (one tile); 165
-    # (batch, chunk, head) items, not a multiple of the 132 SMs
+    # (batch, chunk, head) items, not a multiple of the 132 SMs; then the
+    # continuous engine's prefills, one request at chunk = min(256, S): one
+    # chunk of 4 or 8 rows (a fraction of a 64-row tile), of 128 and 256,
+    # and two chunks of 256
+    mamba = ARCHS[MAMBA.arch]
     for B, S, H, P, N, chunk in ((4, 1024, 48, 64, 128, 256),
                                  (4, 255, 48, 64, 128, 256),
                                  (4, 64, 48, 64, 128, 16),
@@ -392,7 +468,9 @@ def check_kernels(device: torch.device) -> None:
                                  (2, 96, 5, 16, 8, 32),
                                  (1, 4096, 48, 64, 128, 256),
                                  (2, 512, 48, 64, 128, 64),
-                                 (3, 1280, 11, 64, 128, 256)):
+                                 (3, 1280, 11, 64, 128, 256)) + tuple(
+            (1, S, mamba.ssm_heads, mamba.ssm_head_dim, mamba.ssm_state,
+             mamba.ssm_chunk) for S in PREFILL_LENS):
         for dtype in dtypes:
             args = ssd_inputs(B, S, H, P, N, dtype, device)
             out, none = ssd_scan(*args, chunk=chunk)
@@ -756,8 +834,16 @@ def padded_prompts(reqs: List[Request], device: torch.device) -> torch.Tensor:
 def profiled_counts(rows, names: Tuple[str, ...]) -> Dict[str, Dict[str, int]]:
     """torch.profiler's launch count of each kernel symbol of each counted
     kernel name (``KERNEL_SYMBOLS``) in ``rows``."""
-    return {name: {sym: sum(e.count for e in rows if sym in e.key)
+    return {name: {sym: sum(e.count for e in rows if of_symbol(sym, e.key))
                    for sym in KERNEL_SYMBOLS[name]} for name in names}
+
+
+def of_symbol(sym: str, key: str) -> bool:
+    """Whether a profiler row is one of this repo's kernels named ``sym``
+    (they live at namespace scope or in an anonymous namespace; a library's
+    kernel of a like name sits in its own namespace)."""
+    return re.match(rf"(void )?(\(anonymous namespace\)::)?{re.escape(sym)}",
+                    key) is not None
 
 
 def serve_main_path(path: ServePath, cfg: ModelConfig, params,
@@ -923,24 +1009,57 @@ def compare_routes(path: ServePath, cfg: ModelConfig, params,
 def _profile(fn: Callable[[], Any], reps: int = 1, warmup: bool = True):
     """Kernel rows of torch.profiler over ``reps`` calls of ``fn`` (after one
     warm-up call, unless ``warmup`` is false), and the host wall time of the
-    window in us."""
+    window in us.
+
+    Every window opens with ``SENTINELS`` spin kernels, left out of the
+    rows: the tracer can drop the first kernel records of a window (none
+    early in a run; later, the first norm of a graph that begins with the
+    embedding and its scale, in every window, and 9 of 20 timed RMSNorm
+    calls), and the sentinels take that loss.  Raises unless a sentinel is
+    left and the profiler's count of every counted kernel launched in the
+    window equals the launches counted there (``held_to_counts``)."""
     from torch.profiler import ProfilerActivity, profile
     if warmup:
         fn()
     torch.cuda.synchronize()
+    before = collections.Counter(launches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         # margins inside the trace window, outside the timed one: the tracer
         # drops device records whose converted timestamps fall outside it
         time.sleep(PROFILE_MARGIN_S)
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
         time.sleep(PROFILE_MARGIN_S)
+    counted = collections.Counter(launches)
+    counted.subtract(before)
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not any(SENTINEL in e.key for e in rows):
+        raise RuntimeError(f"torch.profiler recorded no {SENTINEL} of the "
+                           f"window's {SENTINELS} sentinels")
+    rows = [e for e in rows if SENTINEL not in e.key]
+    held_to_counts(rows, +counted)
     return rows, wall_us
+
+
+def held_to_counts(rows, counted: Dict[str, int]) -> None:
+    """Every kernel symbol of a counted name (``KERNEL_SYMBOLS``) recorded
+    once per counted launch; the SSD scan's state and state-passing kernels
+    at most once (a one-chunk call runs neither)."""
+    for name, syms in KERNEL_SYMBOLS.items():
+        n = counted.get(name, 0)
+        for sym in syms:
+            seen = sum(e.count for e in rows if of_symbol(sym, e.key))
+            if seen > n or (seen < n and sym not in MULTI_CHUNK_ONLY):
+                raise RuntimeError(f"torch.profiler recorded {seen} {sym} "
+                                   f"for {n} counted {name} launches in the "
+                                   f"window")
 
 
 def device_ms(fn: Callable[[], Any], reps: int = 20) -> float:
@@ -950,10 +1069,20 @@ def device_ms(fn: Callable[[], Any], reps: int = 20) -> float:
 
 def device_ms_by_kernel(fn: Callable[[], Any], reps: int = 20
                         ) -> Dict[str, float]:
-    """Device time per call of each kernel ``fn`` launches, by name."""
-    rows, _ = _profile(fn, reps)
+    """Device time per call of each kernel ``fn`` launches, by name.
+
+    The kernels of one call are counted in a window of their own; the timed
+    window of ``reps`` calls must record ``reps`` times as many of each, or
+    a record went missing and the time would read low."""
+    one, _ = _profile(fn)
+    rows, _ = _profile(fn, reps, warmup=False)
     if not rows:
         raise RuntimeError("torch.profiler recorded no kernel on the card")
+    want = {e.key: reps * e.count for e in one}
+    got = {e.key: e.count for e in rows}
+    if got != want:
+        raise RuntimeError(f"torch.profiler recorded {got} kernels over "
+                           f"{reps} calls, {reps} times one call's: {want}")
     return {e.key: e.self_device_time_total / reps / 1e3 for e in rows}
 
 
@@ -1078,6 +1207,338 @@ def drive_path(path: ServePath, card: str, device: torch.device
               for T, run in runs.items()}
     del params, leaves, runs
     torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------- phase C
+def loadtest_line(card: str, arch: str, T: int, label: str,
+                  m: Dict[str, Any], eng: ContinuousBatchingServer,
+                  decode: Any) -> None:
+    """One line per replay; ``decode`` is the engine's decode graph as
+    captured when the engine was built."""
+    decode_graph_once(eng, decode)
+    n_prefill = sum(1 for k in eng.graphs() if k.startswith("prefill"))
+    log(f"{card} | loadtest {arch} T={T} spec={label}: doorbells "
+        f"{m['doorbells']}, tok/doorbell {m['tokens_per_doorbell']:.3f}, "
+        f"tokens/s {m['tokens_per_s']:.1f}, p50/p99 "
+        f"{m['latency_p50_s'] * 1e3:.3f}/{m['latency_p99_s'] * 1e3:.3f} ms, "
+        f"TTFT p50 {m['ttft_p50_s'] * 1e3:.3f} ms, prefill graphs "
+        f"{n_prefill}, decode captures 1 ({m['requests']} requests, "
+        f"{m['completed']} completed, {m['evicted']} evicted, "
+        f"{m['rejected']} rejected, {m['new_tokens']} new tokens, wall "
+        f"{m['wall_s']:.3f} s)")
+
+
+def decode_graph_once(eng: ContinuousBatchingServer, graph) -> None:
+    """The engine's decode is one graph for its life: the object captured
+    when the engine was built, never captured again."""
+    (key,) = [k for k in eng.graphs() if k.startswith("decode")]
+    step = eng.graphs()[key]
+    if step.graph is not graph:
+        raise AssertionError(f"{eng.cfg.name}: the decode graph was "
+                             f"captured again")
+
+
+def bf16_step(x: float) -> float:
+    """One bf16 step (unit in the last place) at magnitude |x|."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def oneshot_logits_at(model, params, prompt: np.ndarray, tokens: List[int],
+                      j: int, max_seq: int, device: torch.device
+                      ) -> torch.Tensor:
+    """The one-shot's logits for its token ``j``: prefill, then its own
+    tokens fed back (teacher-forced), batch 1, eager."""
+    toks = torch.from_numpy(np.asarray(prompt, np.int32)[None]).to(device)
+    state, logits = model.prefill(params, toks, max_seq)
+    for t in tokens[:j]:
+        nxt = torch.tensor([[t]], dtype=torch.int32, device=device)
+        state, logits = model.decode_step(params, state, nxt)
+    return logits[0, -1].float()
+
+
+def check_against_oneshot(cfg: ModelConfig, params, tickets, n: int,
+                          max_seq: int, device: torch.device, exact: bool,
+                          label: str) -> None:
+    """The first ``n`` served requests re-decoded one by one through a
+    one-shot ``Server(batch_size=1)`` on the engine's params.  ``exact``:
+    every token equal; else the first differing position must be a near-tie
+    of the one-shot (its top-2 logit gap below one bf16 step of its top
+    logit)."""
+    served = [t for t in tickets if t.status in ("done", "evicted")][:n]
+    solo = Server(cfg, batch_size=1, max_seq=max_seq, tokens_per_launch=1,
+                  device=device, params=params)
+    equal, ties = 0, []
+    for t in served:
+        r = Request(t.uid, t.request.prompt, max_new_tokens=len(t.tokens))
+        solo.serve([r])
+        if r.tokens == t.tokens:
+            equal += 1
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(r.tokens, t.tokens))
+                 if a != b)
+        logits = oneshot_logits_at(solo.model, params, t.request.prompt,
+                                   r.tokens, j, max_seq, device)
+        top = logits.topk(2).values.tolist()
+        gap, step = top[0] - top[1], bf16_step(top[0])
+        log(f"{label}: uid {t.uid} differs from the one-shot at token {j} "
+            f"of {len(t.tokens)}: one-shot top-2 logits {top[0]:.5f} / "
+            f"{top[1]:.5f}, gap {gap:.5f} against one bf16 step {step:.5f}"
+            f" ({'a near-tie' if gap < step else 'NOT a near-tie'})")
+        ties.append((t.uid, gap < step))
+    log(f"{label}: {equal}/{len(served)} requests equal the one-shot "
+        f"Server(batch_size=1) token for token"
+        + ("" if exact else f"; {len(ties)} differ at a near-tie"
+           if all(ok for _, ok in ties) else ""))
+    del solo
+    if exact and equal != len(served):
+        raise AssertionError(f"{label}: tokens differ from the one-shot")
+    if not all(ok for _, ok in ties):
+        raise AssertionError(f"{label}: a difference from the one-shot at "
+                             f"a position that is no near-tie")
+    if len(served) != n:
+        raise AssertionError(f"{label}: {len(served)} served requests, "
+                             f"expected {n}")
+
+
+def free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def c1_runs(card: str, arch: str, cfg: ModelConfig, params,
+            device: torch.device) -> Dict[str, int]:
+    """C1: the reference's load spec at T = 1, 4, 8, every replay
+    synchronous: a warm one, the measured one (counts zeroed just before,
+    read just after), then the same traffic once more under torch.profiler,
+    whose counted launches must equal the measured replay's and the
+    profiler's count of the same kernels.  Returns the T=1 measured
+    replay's kernel launches."""
+    kernels = C_KERNELS[arch]
+    t1_counts: Dict[str, int] = {}
+    for T in C1_TS:
+        eng = ContinuousBatchingServer(cfg, tokens_per_launch=T,
+                                       device=device, params=params,
+                                       **C1_ENGINE)
+        decode = eng.graphs()[f"decode T={T}"].graph
+        replay(eng, generate(TrafficSpec(**C1_SPEC), cfg.vocab_size),
+               realtime=False)
+        reset_launches()
+        tickets, m = replay(eng, generate(TrafficSpec(**C1_SPEC), cfg.vocab_size),
+                            realtime=False)
+        counts = dict(launches)
+        loadtest_line(card, cfg.name, T, "bench_loadtest", m, eng, decode)
+        reset_launches()
+        rows, _ = _profile(lambda: replay(
+            eng, generate(TrafficSpec(**C1_SPEC), cfg.vocab_size), realtime=False),
+            warmup=False)
+        if dict(launches) != counts:
+            raise AssertionError(f"{cfg.name} C1 T={T}: the profiled replay "
+                                 f"counted {dict(launches)}, the measured "
+                                 f"one {counts}")
+        prof = profiled_counts(rows, kernels)
+        log(f"{cfg.name} C1 T={T} measured replay: kernel launches {counts},"
+            f" torch.profiler over the same traffic replayed again {prof}; "
+            f"kv {m['kv']}")
+        want = {"requests": 32, "completed": 32, "evicted": 0, "rejected": 0,
+                "new_tokens": C1_NEW_TOKENS, "doorbells": C1_DOORBELLS[T]}
+        got = {k: m[k] for k in want}
+        by_name = collections.Counter(
+            r.name for r in eng.tracker.records[-m["doorbells"]:])
+        prefill_graphs = sorted(k for k in eng.graphs()
+                                if k.startswith("prefill"))
+        if got != want:
+            raise AssertionError(f"{cfg.name} C1 T={T}: {got}, expected "
+                                 f"{want}")
+        if by_name["prefill"] + by_name["decode_slots"] != m["doorbells"]:
+            raise AssertionError(f"{cfg.name} C1 T={T}: doorbells {by_name}"
+                                 f" are not prefills plus decodes")
+        if prefill_graphs != ["prefill S=4", "prefill S=8"]:
+            raise AssertionError(f"{cfg.name} C1 T={T}: prefill graphs "
+                                 f"{prefill_graphs}")
+        for name, by_sym in prof.items():
+            n = counts.get(name, 0)
+            if n < 1 or any(c != (0 if sym in MULTI_CHUNK_ONLY else n)
+                            for sym, c in by_sym.items()):
+                raise AssertionError(f"{cfg.name} C1 T={T}: {n} counted "
+                                     f"{name} launches, the profiler saw "
+                                     f"{by_sym}")
+        if T == 1:
+            t1_counts = counts
+            check_against_oneshot(cfg, params, tickets, 4, C1_ENGINE[
+                "max_seq"], device, exact=False,
+                label=f"{cfg.name} C1 T=1 bf16")
+        del eng
+        free()
+    return t1_counts
+
+
+def c1_fp32(card: str, device: torch.device) -> None:
+    """gemma-2b in fp32 on C1's spec at T=1: the first 8 served requests
+    equal the one-shot's tokens exactly."""
+    cfg = dataclasses.replace(ARCHS[GEMMA.arch], param_dtype="float32")
+    params = get_model(cfg, impl="cuda", device=device).init_params(seed=0)
+    eng = ContinuousBatchingServer(cfg, tokens_per_launch=1, device=device,
+                                   params=params, **C1_ENGINE)
+    tickets, m = replay(eng, generate(TrafficSpec(**C1_SPEC), cfg.vocab_size),
+                        realtime=False)
+    loadtest_line(card, f"{cfg.name} fp32", 1, "bench_loadtest", m, eng,
+                  eng.graphs()["decode T=1"].graph)
+    if m["doorbells"] != C1_DOORBELLS[1] or m["new_tokens"] != C1_NEW_TOKENS:
+        raise AssertionError(f"{cfg.name} fp32 C1: {m}")
+    check_against_oneshot(cfg, params, tickets, 8, C1_ENGINE["max_seq"],
+                          device, exact=True, label=f"{cfg.name} C1 T=1 fp32")
+    del eng, params, tickets
+    free()
+
+
+def span_stats(eng: ContinuousBatchingServer, since: int, name: str
+               ) -> List[float]:
+    return [e.dur_s for e in eng.session.timeline()[since:]
+            if e.name == SPAN_EVENT and e.meta.get("span") == name]
+
+
+def poll_live(eng: ContinuousBatchingServer, url: str, done0: int, k: int,
+              out: Dict[str, Any]) -> None:
+    """One GET of the live summary from the decode loop itself, after the
+    first step that leaves a slot active once ``k`` requests of this run
+    have finished (``done0``: the done tickets before it).  The loop waits
+    on the GET, so the finished tickets, tokens and doorbells read beside
+    the snapshot are those it describes."""
+    step = eng.step
+
+    def stepped() -> bool:
+        busy = step()
+        tickets = list(eng.tickets)
+        done = sum(1 for t in tickets if t.status == "done")
+        if "snapshot" not in out and eng.n_active > 0 and done - done0 >= k:
+            with urllib.request.urlopen(f"{url}/summary", timeout=30) as resp:
+                out["snapshot"] = json.loads(resp.read())
+            out["now"] = {"active": eng.n_active, "done": done,
+                          "tokens_emitted": sum(len(t.tokens)
+                                                for t in tickets),
+                          "doorbells": eng.tracker.count}
+        return busy
+    eng.step = stepped
+
+
+def check_live_poll(label: str, out: Dict[str, Any], done0: int, k: int
+                    ) -> None:
+    """The mid-run snapshot against the engine at that moment: its active
+    slots, done tickets, tokens, ``serve.finish`` events and dispatches
+    all equal what the decode loop held, and this run had finished at
+    least ``k`` requests."""
+    snap, now = out.get("snapshot"), out.get("now")
+    if snap is None:
+        raise AssertionError(f"{label}: no live poll mid-run")
+    e = snap["engine"]
+    got = {"active": e["active"], "done": e["tickets"]["done"],
+           "finish events": snap["by_name"].get("serve.finish", {}).get(
+               "events", 0),
+           "tokens_emitted": e["tokens_emitted"],
+           "dispatches": snap["by_kind"].get("dispatch", 0)}
+    want = {"active": now["active"], "done": now["done"],
+            "finish events": now["done"],
+            "tokens_emitted": now["tokens_emitted"],
+            "dispatches": now["doorbells"]}
+    log(f"{label} live poll mid-run, after {now['done'] - done0} of this "
+        f"run's requests finished: {got}; the engine at that moment: {want}")
+    if got != want or now["active"] < 1 or now["done"] - done0 < k:
+        raise AssertionError(f"{label}: the live summary {got} disagrees "
+                             f"with the engine {want}")
+
+
+def c2_runs(card: str, arch: str, cfg: ModelConfig, params,
+            device: torch.device) -> None:
+    """C2: realistic prompts and budgets.  For each T: a synchronous
+    replay, then a realtime one at half the requests/s it sustained with
+    the live endpoint polled mid-run; device busy over one decode replay
+    and the host gap between decode launches."""
+    fields, engine = C2[arch]
+    for T in C2_TS:
+        eng = ContinuousBatchingServer(
+            cfg, tokens_per_launch=T, device=device, params=params,
+            session=TraceSession(f"C2 {arch} T={T}", ring_size=C_RING),
+            **engine)
+        decode_step = eng.graphs()[f"decode T={T}"]
+        decode = decode_step.graph
+        spec = TrafficSpec(**fields)
+        ev0 = eng.session.n_events
+        db0 = eng.tracker.count
+        tickets, m = replay(eng, generate(spec, cfg.vocab_size),
+                            realtime=False)
+        loadtest_line(card, cfg.name, T, "C2 sync", m, eng, decode)
+        if (m["completed"], m["evicted"], m["rejected"]) != (
+                fields["n_requests"], 0, 0):
+            raise AssertionError(f"{cfg.name} C2 T={T}: {m}")
+        iters = span_stats(eng, ev0, "serve.decode_iter")
+        starts = [r.t_submit for r in eng.tracker.records[db0:]
+                  if r.name == "decode_slots"]
+        gaps = np.diff(starts)
+        replay_ms = time_ms(decode_step, reps=4, warmup=1)
+        busy_ms = device_ms(decode_step, reps=4)
+        span_ms = time_ms(decode_step, reps=1, warmup=1)
+        # an admission between two decode launches: one batch-1 prefill
+        prefill_ms = {label: time_ms(step, reps=4, warmup=1)
+                      for label, step in sorted(eng.graphs().items())
+                      if label.startswith("prefill")}
+        log(f"{card} | {cfg.name} C2 T={T} decode: one replay {replay_ms:.3f}"
+            f" ms ({busy_ms:.3f} ms of kernels, device busy "
+            f"{busy_ms / span_ms:.1%} over one replay at full occupancy, "
+            f"{engine['batch_size']} slots); serve.decode_iter spans p50/p99 "
+            f"{np.percentile(iters, 50) * 1e3:.3f}/"
+            f"{np.percentile(iters, 99) * 1e3:.3f} ms over {len(iters)}; "
+            f"decode launch to launch p50/p99 "
+            f"{np.percentile(gaps, 50) * 1e3:.3f}/"
+            f"{np.percentile(gaps, 99) * 1e3:.3f} ms: host gap beyond the "
+            f"replay p50/p99 {np.percentile(gaps, 50) * 1e3 - replay_ms:.3f}"
+            f"/{np.percentile(gaps, 99) * 1e3 - replay_ms:.3f} ms; one "
+            f"prefill replay " + ", ".join(
+                f"{k[8:]} {v:.3f} ms" for k, v in prefill_ms.items()))
+        if T == 1:
+            check_against_oneshot(cfg, params, tickets, 4, engine["max_seq"],
+                                  device, exact=False,
+                                  label=f"{cfg.name} C2 T=1 bf16")
+        rate = 0.5 * m["requests"] / m["wall_s"]
+        live_srv = eng.start_live_endpoint()
+        polled: Dict[str, Any] = {}
+        done0 = sum(1 for t in eng.tickets if t.status == "done")
+        poll_live(eng, live_srv.url, done0, LIVE_POLL_AFTER, polled)
+        try:
+            rt_tickets, rm = replay(
+                eng, generate(dataclasses.replace(spec, rate=rate),
+                              cfg.vocab_size), realtime=True)
+        finally:
+            eng.stop_live_endpoint()
+            del eng.step
+        loadtest_line(card, cfg.name, T, f"C2 realtime {rate:.2f} req/s",
+                      rm, eng, decode)
+        check_live_poll(f"{cfg.name} C2 T={T}", polled, done0,
+                        LIVE_POLL_AFTER)
+        if (rm["completed"], len(rt_tickets)) != (fields["n_requests"],) * 2:
+            raise AssertionError(f"{cfg.name} C2 T={T} realtime: {rm}")
+        del eng, decode_step, tickets, rt_tickets
+        free()
+
+
+def continuous_path(card: str, device: torch.device
+                    ) -> Dict[str, Dict[str, int]]:
+    """Phase C for both archs at full width; returns the C1 T=1 measured
+    replay's kernel launches by arch."""
+    counts = {}
+    for path in PATHS:
+        cfg = ARCHS[path.arch]
+        params = get_model(cfg, impl="cuda", device=device).init_params(
+            seed=0)
+        log(f"phase C1: {cfg.name} ContinuousBatchingServer on "
+            f"bench_loadtest's spec {C1_SPEC}, {C1_ENGINE}")
+        counts[path.arch] = c1_runs(card, path.arch, cfg, params, device)
+        log(f"phase C2: {cfg.name} realistic traffic {C2[path.arch]}")
+        c2_runs(card, path.arch, cfg, params, device)
+        del params
+        free()
+    log("phase C1 fp32: gemma-2b against the one-shot, exactly")
+    c1_fp32(card, device)
     return counts
 
 
@@ -1227,12 +1688,16 @@ def main() -> int:
 
     counts = {path.arch: drive_path(path, card, device) for path in PATHS}
 
+    log("phase C: continuous batching, ContinuousBatchingServer on DenseKV")
+    c_counts = continuous_path(card, device)
+
     log("kernels at their paths' shapes")
     kernels = [rms_entry(device), flash_entry(device), ssd_entry(device)]
     kernels[1]["long_s"] = flash_long(card, device)
     for e in kernels:
         # launches: the replayed T=1 serves of every path that runs the
-        # kernel; by path, every serve
+        # kernel; by path, every serve, and the continuous engine's
+        # measured C1 replay at T=1
         e["launches_by_path"] = {
             arch: {f"T={T} {serve}": c.get(e["name"], 0)
                    for T, by_serve in by_T.items()
@@ -1241,6 +1706,10 @@ def main() -> int:
             if by_T[1]["replay"].get(e["name"], 0)}
         e["launches"] = sum(v["T=1 replay"]
                             for v in e["launches_by_path"].values())
+        for arch, c in c_counts.items():
+            if c.get(e["name"], 0):
+                e["launches_by_path"][f"{arch} continuous"] = {
+                    "C1 T=1 measured replay": c[e["name"]]}
         log(f"{card} | {e['name']} at {e['shape']}: device {e['ms']:.5f} ms "
             f"(per call with host {e['call_ms']:.5f} ms), bound "
             f"{e['bound_ms']:.5f} ms ({e['bound_by']}), plain "

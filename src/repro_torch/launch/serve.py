@@ -1,24 +1,45 @@
-"""One-shot serving launcher: batched greedy decode with multi-token launches.
+"""Serving launcher: batched greedy decode with multi-token launches.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
         [--smoke] [--batch 4] [--max-seq 128] [--prompt-len 8] \
-        [--new-tokens 16] [--tokens-per-launch 4] [--seed 0] [--device cuda]
+        [--new-tokens 16] [--tokens-per-launch 4] [--seed 0] [--device cuda] \
+        [--continuous [--requests N] [--sched fifo|priority|fair] \
+         [--live [PORT]]] [--trace PATH] [--profile]
 
 Runs on the card unless ``--device cpu`` is given.  Weights are the port's
 seeded random init; prompts are seeded random tokens.
+
+``--continuous`` serves the requests through the continuous-batching
+engine (queued admission, per-request KV slots) instead of one static
+batch; ``python -m repro_torch.launch.loadtest`` is the full traffic
+harness.  ``--live [PORT]`` (with ``--continuous``) exposes the engine's
+live session summary over HTTP while it runs (``GET /summary``,
+``GET /stream``; :mod:`repro_torch.obs.live`).  ``--kv paged`` and
+``--prefill-chunk N`` (N > 0) raise the engine's ``ValueError``: neither is
+ported yet.
+
+``--trace PATH`` writes a fleet-identified JSONL shard of the run
+(``host``/``process`` tags, per-process filename) for
+``repro_torch.obs.aggregate`` / ``repro_torch.obs.export``; ``--profile``
+prints per-span command attribution (``serve.request``,
+``serve.decode_iter``, ``serve.prefill``) after the run.
 """
 from __future__ import annotations
 
 import argparse
+from typing import List, Optional
 
 import numpy as np
 
 from ..configs import ARCHS, SMOKE_ARCHS
-from ..runtime.server import Request, Server
+from ..core.session import TraceSession
+from ..distributed.context import process_tags, shard_path
+from ..obs.profile import SpanProfile
+from ..runtime.server import ContinuousBatchingServer, Request, Server
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
+def main(argv: Optional[List[str]] = None) -> None:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="gemma-2b", choices=list(ARCHS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
@@ -26,24 +47,79 @@ def main() -> None:
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--tokens-per-launch", type=int, default=4)
+    ap.add_argument("--continuous", action="store_true",
+                    help="serve through the continuous-batching engine")
+    ap.add_argument("--kv", default="dense", choices=("dense", "paged"),
+                    help="with --continuous: KV-cache backend (only dense "
+                         "is ported)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="max tokens per prefill launch (chunking is not "
+                         "ported)")
+    ap.add_argument("--sched", default="fifo",
+                    choices=("fifo", "priority", "fair"),
+                    help="with --continuous: admission scheduling policy")
+    ap.add_argument("--requests", type=int, default=None,
+                    help="request count for --continuous (default: batch)")
+    ap.add_argument("--live", type=int, default=None, nargs="?", const=0,
+                    metavar="PORT",
+                    help="with --continuous: serve the live summary over "
+                         "HTTP while the engine runs")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write this process's JSONL trace shard "
+                         "(fleet-tagged, per-process filename)")
+    ap.add_argument("--profile", action="store_true",
+                    help="print per-span command attribution after the run")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     cfg = (SMOKE_ARCHS if args.smoke else ARCHS)[args.arch]
-    srv = Server(cfg, batch_size=args.batch, max_seq=args.max_seq,
-                 tokens_per_launch=args.tokens_per_launch, seed=args.seed,
-                 device=args.device)
+    shard = shard_path(args.trace) if args.trace else None
+    session = TraceSession(name="serve", jsonl_path=shard,
+                           tags=process_tags())
+    prof = None
+    if args.profile:
+        prof = SpanProfile(name="serve")
+        session.add_sink(prof)
+    if args.continuous:
+        srv = ContinuousBatchingServer(
+            cfg, batch_size=args.batch, max_seq=args.max_seq,
+            tokens_per_launch=args.tokens_per_launch, seed=args.seed,
+            session=session, kv=args.kv, prefill_chunk=args.prefill_chunk,
+            sched=args.sched, device=args.device)
+    else:
+        srv = Server(cfg, batch_size=args.batch, max_seq=args.max_seq,
+                     tokens_per_launch=args.tokens_per_launch, seed=args.seed,
+                     session=session, device=args.device)
     rng = np.random.default_rng(args.seed)
+    n = (args.requests or args.batch) if args.continuous else args.batch
     reqs = [Request(i, rng.integers(0, cfg.vocab_size,
                                     size=args.prompt_len).astype(np.int32),
                     max_new_tokens=args.new_tokens)
-            for i in range(args.batch)]
-    out = srv.serve(reqs)
+            for i in range(n)]
+    if args.continuous:
+        live_srv = None
+        if args.live is not None:
+            live_srv = srv.start_live_endpoint(port=args.live)
+            print(f"live summary endpoint: {live_srv.url}/summary")
+        for r in reqs:
+            srv.submit(r)
+        try:
+            out = srv.run()
+        finally:
+            if live_srv is not None:
+                srv.stop_live_endpoint()
+    else:
+        out = srv.serve(reqs)
     print(out)
     for r in reqs[:2]:
         print(f"req {r.uid}: {r.tokens}")
     print(srv.session.report(max_events=30))
+    if prof is not None:
+        print(prof.report())
+    session.close()
+    if shard:
+        print(f"trace shard: {shard}")
 
 
 if __name__ == "__main__":

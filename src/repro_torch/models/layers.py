@@ -17,7 +17,7 @@ from ..kernels.rms_norm.ops import rms_norm as rms_norm_kernel
 
 __all__ = ["Params", "Spec", "map_params", "layer_params", "init_from_specs",
            "embedding_specs", "rms_norm", "rotary", "apply_rope", "mlp",
-           "embed", "unembed", "dtype_of", "silu", "softplus"]
+           "embed", "unembed", "greedy", "dtype_of", "silu", "softplus"]
 
 Params = Dict[str, Any]
 
@@ -167,3 +167,8 @@ def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "unembed" in p:
         return x @ p["unembed"]
     return x @ p["embed"].T
+
+
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """[B, S, V] logits -> [B, 1] int32 argmax of the last position."""
+    return torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)

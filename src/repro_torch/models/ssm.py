@@ -83,6 +83,21 @@ class MambaLM:
         del max_seq
         return init_ssm_state(self.cfg, batch, dtype_of(self.cfg), self.device)
 
+    def init_slot_state(self, batch: int, max_seq: int
+                        ) -> Dict[str, torch.Tensor]:
+        """The continuous engine's state: the decode state of ``batch``
+        slots (an SSM state carries no length)."""
+        return self.init_decode_state(batch, max_seq)
+
+    def install_slot(self, slots: Dict[str, torch.Tensor],
+                     one: Dict[str, torch.Tensor], index: torch.Tensor
+                     ) -> None:
+        """Copy a batch-1 decode state ``one`` (a prefill's: zero, as in the
+        reference) into slot ``index`` (a ``[1]`` int64 tensor on the
+        device) of ``slots``, in place."""
+        for k, v in slots.items():
+            v.index_copy_(1, index, one[k])
+
     def prefill(self, params: Params, tokens: torch.Tensor, max_seq: int,
                 state: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:

@@ -14,7 +14,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .attention import IMPLS, attention, decode_attention, init_kv_cache
+from .attention import (IMPLS, DecodePositions, attention, decode_attention,
+                        decode_positions, init_kv_cache)
 from .layers import (Params, Spec, dtype_of, embed, embedding_specs,
                      init_from_specs, layer_params, mlp, rms_norm, unembed)
 
@@ -59,9 +60,9 @@ def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 length: torch.Tensor) -> torch.Tensor:
+                 pos: DecodePositions) -> torch.Tensor:
     x = x + decode_attention(p["attn"], cfg, rms_norm(p["ln1"], x),
-                             k_cache, v_cache, length)
+                             k_cache, v_cache, pos)
     return x + mlp(p["mlp"], rms_norm(p["ln2"], x), cfg.act)
 
 
@@ -110,6 +111,23 @@ class TransformerLM:
                           ) -> Dict[str, torch.Tensor]:
         return init_kv_cache(self.cfg, batch, max_seq, dtype_of(self.cfg),
                              self.device)
+
+    def init_slot_state(self, batch: int, max_seq: int
+                        ) -> Dict[str, torch.Tensor]:
+        """The continuous engine's state: ``batch`` slots, each with its own
+        cache length (``length`` of shape ``[batch]``)."""
+        return init_kv_cache(self.cfg, batch, max_seq, dtype_of(self.cfg),
+                             self.device, per_slot=True)
+
+    def install_slot(self, slots: Dict[str, torch.Tensor],
+                     one: Dict[str, torch.Tensor], index: torch.Tensor
+                     ) -> None:
+        """Copy a batch-1 decode state ``one`` (a prefill's) into slot
+        ``index`` (a ``[1]`` int64 tensor on the device) of ``slots``: all
+        ``max_seq`` cache rows and the length, in place."""
+        slots["k"].index_copy_(1, index, one["k"])
+        slots["v"].index_copy_(1, index, one["v"])
+        slots["length"].index_copy_(0, index, one["length"].reshape(1))
 
     def prefill(self, params: Params, tokens: torch.Tensor, max_seq: int,
                 state: Optional[Dict[str, torch.Tensor]] = None
@@ -161,14 +179,17 @@ class TransformerLM:
         """One token for every sequence. tokens: [B, 1].
 
         ``state`` is updated in place (the caches at ``length``, then
-        ``length + 1``) and returned.
+        ``length + 1``) and returned.  Its ``length`` is one for the batch
+        (``[]``) or one a slot (``[B]``, :meth:`init_slot_state`).
         """
         cfg = self.cfg
         x = embed(params["emb"], tokens, cfg.embed_scale)
         length = state["length"]
+        pos = decode_positions(cfg, length, tokens.shape[0],
+                               state["k"].shape[2])
         for i in range(cfg.n_layers):
             x = block_decode(layer_params(params["layers"], i), cfg, x,
-                             state["k"][i], state["v"][i], length)
+                             state["k"][i], state["v"][i], pos)
         x = rms_norm(params["final_norm"], x)
         logits = unembed(params["emb"], x)
         length.add_(1)

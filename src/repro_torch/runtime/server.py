@@ -1,6 +1,7 @@
-"""One-shot serving: batched prefill + greedy decode with doorbell accounting.
+"""Serving: batched prefill + greedy decode with doorbell accounting.
 
-The port of ``repro.runtime.server.Server.serve``.  Decode is the
+The port of ``repro.runtime.server``: the one-shot :class:`Server` and the
+:class:`ContinuousBatchingServer`.  Decode is the
 small-submission regime of the paper's study: one token of useful work per
 dispatch.  ``tokens_per_launch=T`` runs T decode steps in one wrapped call,
 so a T-step block rings one doorbell.
@@ -13,6 +14,10 @@ graph holding T steps and their greedy argmax (the reference's
 the decode state, the prompt ``[B, max_seq]``, the decode input token
 ``[B, 1]`` and the block's tokens ``[T, B]``.  On the CPU (``device="cpu"``)
 the same step functions run directly on the same buffers.
+
+The continuous engine admits queued requests into KV slots between decode
+launches; its graphs (one prefill a prompt length, one decode over all
+slots) live in its KV backend, ``runtime/kv.py``.
 """
 from __future__ import annotations
 
@@ -25,11 +30,15 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.graphs import CapturedStep
-from ..core.session import TraceSession
+from ..core.session import SpanHandle, TraceSession
 from ..models import get_model
-from ..models.layers import Params
+from ..models.layers import Params, greedy
+from ..obs.live import LiveServer, LiveSummary
+from .kv import make_kv
+from .scheduler import (AdmissionQueue, RequestTicket, latency_stats,
+                        make_policy)
 
-__all__ = ["Server", "Request"]
+__all__ = ["Server", "Request", "ContinuousBatchingServer"]
 
 
 @dataclasses.dataclass
@@ -38,6 +47,8 @@ class Request:
     prompt: np.ndarray          # [S] int32
     max_new_tokens: int = 16
     tokens: Optional[List[int]] = None
+    priority: int = 0           # PriorityPolicy: higher admits first
+    user: str = ""              # FairSharePolicy: least-served user first
 
 
 def _empty_metrics() -> Dict[str, Any]:
@@ -45,19 +56,16 @@ def _empty_metrics() -> Dict[str, Any]:
             "tokens_per_doorbell": 0.0, "trace_events": 0}
 
 
-def _greedy(logits: torch.Tensor) -> torch.Tensor:
-    """[B, S, V] logits -> [B, 1] int32 argmax of the last position."""
-    return torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
-
-
-class Server:
-    """Static-batch greedy server on the kernel route (``impl="cuda"``) of
-    the config's family: dense transformer or Mamba2.
+class _Serving:
+    """What both serving surfaces share: the model on the kernel route
+    (``impl="cuda"``) of the config's family, its params, the session and
+    its doorbell tracker.
 
     ``params`` defaults to the model's seeded init (``seed``); pass a param
     tree to serve given weights (e.g. the reference's, via
-    :func:`repro_torch.weights.params_from_jax`).  ``tokens_per_launch=None``
-    means 1 (the reference's tuned policy is not ported).
+    :func:`repro_torch.weights.params_from_jax`, or another server's: the
+    tree is shared, not copied).  ``tokens_per_launch=None`` means 1 (the
+    reference's tuned policy is not ported).
     """
 
     def __init__(self, cfg: ModelConfig, batch_size: int, max_seq: int,
@@ -77,6 +85,19 @@ class Server:
         self.tracker = self.session.doorbell
         self.params = (params if params is not None
                        else self.model.init_params(seed))
+
+
+class Server(_Serving):
+    """Static-batch greedy server: one batch of requests decoded to the
+    end (see :class:`_Serving` for the arguments)."""
+
+    def __init__(self, cfg: ModelConfig, batch_size: int, max_seq: int,
+                 tokens_per_launch: Optional[int] = None, seed: int = 0,
+                 session: Optional[TraceSession] = None,
+                 device: Optional[Union[str, torch.device]] = None,
+                 params: Optional[Params] = None) -> None:
+        super().__init__(cfg, batch_size, max_seq, tokens_per_launch, seed,
+                         session, device, params)
 
         # fixed buffers of every graph; the graphs also bake in self.params
         self.state = self.model.init_decode_state(batch_size, max_seq)
@@ -115,7 +136,7 @@ class Server:
         def step() -> None:
             _, logits = self.model.prefill(self.params, self._prompt[:, :S],
                                            self.max_seq, state=self.state)
-            self._tok.copy_(_greedy(logits))
+            self._tok.copy_(greedy(logits))
         return step
 
     def _decode_steps(self) -> None:
@@ -124,7 +145,7 @@ class Server:
         tokens = self._tok
         for t in range(self.T):
             _, logits = self.model.decode_step(self.params, self.state, tokens)
-            tokens = _greedy(logits)
+            tokens = greedy(logits)
             self._block[t].copy_(tokens[:, 0])
         self._tok.copy_(tokens)
 
@@ -218,3 +239,316 @@ class Server:
             "tokens_per_doorbell": new_tokens / max(1, doorbells),
             "trace_events": self.session.n_events - ev0,
         }
+
+
+class ContinuousBatchingServer(_Serving):
+    """Continuous-batching inference engine.
+
+    Requests are :meth:`submit`-ted (thread-safe — a traffic-generator
+    thread can feed a running decode loop) into a bounded
+    :class:`~repro_torch.runtime.scheduler.AdmissionQueue`; :meth:`run`
+    drives the decode loop, admitting queued requests into free KV slots
+    *between decode launches*, so the one captured ``tokens_per_launch``
+    decode never changes shape (and is never captured again) across
+    join/leave boundaries.
+
+    Per-request state: slot ``i`` holds its own decode state, with its own
+    cache length; one decode launch runs every slot.  Prefill runs per
+    admitted request at its exact prompt length (one graph per distinct
+    length), so a request's greedy chain is the one ``Server.serve([request])``
+    gives, whenever it joined and whoever shared the batch (in fp32 exactly;
+    in bf16 up to near-ties, since the batched decode's products run at
+    M = B rather than 1).
+
+    Lifecycle events land on the session timeline as ``progress`` events
+    (``serve.submit/admit/finish/evict/reject``); a finish event carries
+    the emitted tokens as its payload (4 bytes each), so token throughput
+    is recoverable from session accounting alone.
+
+    Observability plane: the engine installs a
+    :class:`~repro_torch.obs.LiveSummary` sink on its session, so
+    :meth:`live_summary` answers at any point *during* a run with the same
+    schema ``session.summary()`` gives post-mortem (plus engine state:
+    active slots, queue depth, ticket fates).  :meth:`start_live_endpoint`
+    serves that over HTTP (``GET /summary``, ``GET /stream``).
+
+    ``kv`` names the backend; only ``"dense"`` is ported, and ``"paged"``
+    or ``prefill_chunk > 0`` raise ``ValueError``.  Runs on the card unless
+    ``device="cpu"``; ``params`` as for :class:`Server`.
+    """
+
+    def __init__(self, cfg: ModelConfig, batch_size: int, max_seq: int,
+                 tokens_per_launch: Optional[int] = None, seed: int = 0,
+                 session: Optional[TraceSession] = None,
+                 max_pending: int = 256,
+                 admission: str = "reject",
+                 kv: str = "dense",
+                 kv_page_tokens: Optional[int] = None,
+                 kv_pages: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 sched: str = "fifo",
+                 device: Optional[Union[str, torch.device]] = None,
+                 params: Optional[Params] = None) -> None:
+        super().__init__(cfg, batch_size, max_seq, tokens_per_launch, seed,
+                         session, device, params)
+        self.queue = AdmissionQueue(max_pending=max_pending, policy=admission)
+        self.sched_policy = make_policy(sched)
+        self.tickets: List[RequestTicket] = []      # submit order, all fates
+        self._slot_tix: List[Optional[RequestTicket]] = [None] * self.B
+        # per-request causal spans: a request's lifetime crosses scheduler
+        # iterations (and the decode launch is shared by every active slot),
+        # so these are manual handles closed in _finish with *declared*
+        # attribution — n_launches decode launches + prefill launches
+        self._req_spans: Dict[int, SpanHandle] = {}
+
+        # live observability plane: every event the (possibly shared)
+        # session emits while this engine exists also folds into an
+        # incremental summary a poller can read mid-run
+        self.live = LiveSummary(name=self.session.name)
+        self.session.add_sink(self.live)
+        self._live_server: Optional[LiveServer] = None
+
+        self.kv = make_kv(
+            self, kv,
+            page_tokens=16 if kv_page_tokens is None else kv_page_tokens,
+            pages=kv_pages, prefill_chunk=prefill_chunk or 0)
+
+    def graphs(self) -> Dict[str, CapturedStep]:
+        """The engine's captured steps by name: one prefill a distinct
+        prompt length, and the one decode."""
+        return self.kv.graphs()
+
+    # -- intake (any thread) ----------------------------------------------
+    def submit(self, request: Request) -> RequestTicket:
+        """Enqueue a request; returns its ticket (possibly already
+        ``rejected`` — admission control, not an exception, because the
+        traffic thread must keep running).  Host-only: touches no device."""
+        tix = RequestTicket(request=request, t_submit=time.perf_counter())
+        if len(request.prompt) > self.max_seq:
+            tix.status, tix.reason = "rejected", "prompt_exceeds_max_seq"
+            tix.t_done = tix.t_submit
+        else:
+            accepted, dropped = self.queue.submit(tix)
+            if dropped is not None:
+                dropped.status, dropped.reason = "evicted", "queue_overflow"
+                dropped.t_done = time.perf_counter()
+                self.session.emit("progress", "serve.evict",
+                                  uid=dropped.uid, reason=dropped.reason)
+                self._end_request_span(dropped)
+            if not accepted:
+                tix.status = "rejected"
+                tix.reason = ("intake_closed" if self.queue.closed
+                              else "queue_full")
+                tix.t_done = time.perf_counter()
+            else:
+                self._req_spans[tix.uid] = self.session.start_span(
+                    "serve.request", uid=tix.uid,
+                    prompt_len=int(len(request.prompt)))
+        self.tickets.append(tix)
+        name = "serve.submit" if not tix.finished else "serve.reject"
+        self.session.emit("progress", name, uid=tix.uid, status=tix.status,
+                          reason=tix.reason)
+        return tix
+
+    def close_intake(self) -> None:
+        """No more submits: :meth:`run` may exit once everything drains."""
+        self.queue.close()
+
+    # -- live observability (any thread) -----------------------------------
+    def live_summary(self) -> Dict[str, Any]:
+        """Session-schema summary *now*, plus engine state.
+
+        Safe from any thread while the decode loop runs; this is the
+        poll-mode payload of the live endpoint.
+        """
+        snap = self.live.snapshot()
+        tickets = list(self.tickets)
+        snap["engine"] = {
+            "slots": self.B,
+            "active": self.n_active,
+            "queued": len(self.queue),
+            "intake_closed": self.queue.closed,
+            "tickets": {s: sum(1 for t in tickets if t.status == s)
+                        for s in ("queued", "active", "done", "evicted",
+                                  "rejected")},
+            "tokens_emitted": sum(len(t.tokens) for t in tickets),
+        }
+        return snap
+
+    def start_live_endpoint(self, port: int = 0, host: str = "127.0.0.1"
+                            ) -> LiveServer:
+        """Serve :meth:`live_summary` over HTTP; returns the started
+        :class:`~repro_torch.obs.LiveServer` (``.url``, ``.stop()``)."""
+        self._live_server = LiveServer(self.live_summary, host=host,
+                                       port=port).start()
+        return self._live_server
+
+    def stop_live_endpoint(self) -> None:
+        if self._live_server is not None:
+            self._live_server.stop()
+            self._live_server = None
+
+    # -- scheduling (decode-loop thread) -----------------------------------
+    def _free_slots(self) -> List[int]:
+        return [i for i, t in enumerate(self._slot_tix) if t is None]
+
+    @property
+    def n_active(self) -> int:
+        return sum(1 for t in self._slot_tix if t is not None)
+
+    def _end_request_span(self, tix: RequestTicket) -> None:
+        """Close a request's causal span with its declared attribution.
+
+        The decode launch is shared by every active slot, so this request's
+        share of the command stream can't be read off stamped events — it
+        is *declared* here instead: one doorbell per decode launch the
+        request rode (``n_launches``) plus its prefill, and 4 bytes per
+        emitted token (matching the finish-event payload).
+        """
+        handle = self._req_spans.pop(tix.uid, None)
+        if handle is None:
+            return
+        launches = tix.n_launches
+        handle.end(uid=tix.uid, status=tix.status, slot=tix.slot,
+                   n_tokens=len(tix.tokens),
+                   doorbells=launches + tix.n_prefill_launches,
+                   graph_launches=launches,
+                   payload=4 * len(tix.tokens))
+
+    def _on_first_token(self, tix: RequestTicket, tok0: int) -> None:
+        """Prefill completed: record token 0, finish degenerate requests."""
+        tix.tokens.append(tok0)
+        tix.t_first = time.perf_counter()
+        if len(tix.tokens) >= min(tix.request.max_new_tokens, tix.cap):
+            self._finish(tix)           # degenerate 1-token request
+
+    def _admit(self) -> int:
+        """Move queued tickets into free slots, prefilling each whole (one
+        launch, at its exact prompt length)."""
+        admitted = 0
+        for slot in self._free_slots():
+            tix = self.queue.pop(self.sched_policy)
+            if tix is None:
+                break
+            r = tix.request
+            self.kv.begin(slot, tix)
+            tix.status, tix.slot = "active", slot
+            tix.t_admit = time.perf_counter()
+            # KV capacity: decode token j (0-based; token 0 comes straight
+            # from prefill logits) writes cache position prompt_len + j - 1,
+            # which must stay below max_seq.
+            tix.cap = self.max_seq - len(r.prompt) + 1
+            self._slot_tix[slot] = tix
+            tok0 = self.kv.prefill_step(slot)       # one whole-prompt launch
+            self.session.emit("progress", "serve.admit", uid=tix.uid,
+                              slot=slot, queued_s=tix.t_admit - tix.t_submit)
+            self._on_first_token(tix, tok0)
+            admitted += 1
+        return admitted
+
+    def _prefill_tick(self) -> None:
+        """Advance one pending chunked prefill by one launch: a no-op, since
+        chunked prefill is not ported and :meth:`_admit` prefills every
+        prompt whole."""
+
+    def _finish(self, tix: RequestTicket, reason: Optional[str] = None
+                ) -> None:
+        evicted = (reason is not None
+                   or len(tix.tokens) < tix.request.max_new_tokens)
+        tix.status = "evicted" if evicted else "done"
+        if evicted:
+            tix.reason = reason or "kv_overrun"
+        tix.t_done = time.perf_counter()
+        tix.request.tokens = list(tix.tokens)
+        self._slot_tix[tix.slot] = None
+        self.kv.release(tix.slot)
+        self.session.emit(
+            "progress", "serve.evict" if evicted else "serve.finish",
+            payload_bytes=4 * len(tix.tokens), uid=tix.uid, slot=tix.slot,
+            tokens=len(tix.tokens), latency_s=tix.latency_s,
+            **({"reason": tix.reason} if evicted else {}))
+        self._end_request_span(tix)
+        self.sched_policy.note_finished(tix)
+
+    def step(self) -> bool:
+        """One scheduler iteration: admit, then one decode launch across all
+        decodable slots; harvest per-slot tokens.  Returns False if idle."""
+        self._admit()
+        self._prefill_tick()
+        decodable = [slot for slot, tix in enumerate(self._slot_tix)
+                     if tix is not None]
+        if not decodable:
+            return False
+        with self.session.span("serve.decode_iter", active=self.n_active):
+            blocks = self.kv.decode()               # [B, T] host sync
+            for slot in decodable:
+                tix = self._slot_tix[slot]
+                tix.n_launches += 1
+                budget = min(tix.request.max_new_tokens, tix.cap)
+                take = min(self.T, budget - len(tix.tokens))
+                tix.tokens.extend(int(t) for t in blocks[slot, :take])
+                if len(tix.tokens) >= budget:
+                    self._finish(tix)
+        return True
+
+    def run(self, idle_timeout_s: float = 5.0,
+            poll_s: float = 0.0005) -> Dict[str, Any]:
+        """Drive the decode loop until all work drains.
+
+        Exits when no request is queued or active AND either the intake is
+        closed (threaded replay calls :meth:`close_intake` when the
+        producer finishes) or nothing has arrived for ``idle_timeout_s``
+        (synchronous submit-then-run callers never close the intake).
+        When idle, the loop blocks on the queue's condition variable —
+        :meth:`submit` and :meth:`close_intake` wake it immediately —
+        with ``poll_s`` as the floor of its timeout.  Returns run metrics;
+        per-request detail lives on the tickets.
+        """
+        t0 = time.perf_counter()
+        db0, ev0 = self.tracker.count, self.session.n_events
+        # snapshot: the tickets list grows from the traffic thread mid-run
+        done0 = sum(1 for t in list(self.tickets) if t.t_done >= 0)
+        tok0 = sum(len(t.tokens) for t in list(self.tickets))
+        idle_since: Optional[float] = None
+        while True:
+            if self.step():
+                idle_since = None
+                continue
+            if len(self.queue) == 0:
+                if self.queue.closed:
+                    break
+                now = time.perf_counter()
+                idle_since = idle_since if idle_since is not None else now
+                remaining = idle_timeout_s - (now - idle_since)
+                if remaining <= 0:
+                    break
+                self.queue.wait_for_work(timeout=max(poll_s, remaining))
+            # else: queued work raced in after this iteration's admit pass;
+            # loop around immediately
+        wall = time.perf_counter() - t0
+        tickets = list(self.tickets)
+        ended = [t for t in tickets if t.t_done >= t0]
+        by_status = {s: sum(1 for t in ended if t.status == s)
+                     for s in ("done", "evicted", "rejected")}
+        new_tokens = sum(len(t.tokens) for t in tickets) - tok0
+        doorbells = self.tracker.count - db0
+        out = {
+            "wall_s": wall,
+            "requests": sum(1 for t in tickets if t.t_done >= 0) - done0,
+            "completed": by_status["done"],
+            "evicted": by_status["evicted"],
+            "rejected": by_status["rejected"],
+            "new_tokens": int(new_tokens),
+            "doorbells": doorbells,
+            "tokens_per_doorbell": new_tokens / max(1, doorbells),
+            "tokens_per_s": new_tokens / max(wall, 1e-9),
+            "trace_events": self.session.n_events - ev0,
+            # backend accounting (prefill launches/bytes): engine-lifetime
+            # totals, not per-run deltas
+            "kv": self.kv.stats(),
+        }
+        # latency percentiles over requests that actually decoded; instant
+        # rejections would skew p50 toward zero
+        out.update(latency_stats(
+            [t for t in ended if t.status in ("done", "evicted")]))
+        return out
