@@ -107,7 +107,36 @@ C2. realistic traffic (prompts of 128, 256 and 512, budgets of 32, 64 and
 C1 fp32: gemma-2b in fp32 on C1's spec at T=1, its first 8 requests equal
     to the one-shot's exactly;
 
-one ``<card> | loadtest <arch> T=<T> spec=<spec>: ...`` line per replay;
+then phase K, chunked prefill and the paged KV backend (``PagedKV``: a page
+pool, block tables, shared-prefix pages), gemma-2b at full width in bf16;
+every prefill chunk and every decode launch one graph replay.  Each engine
+runs a warm replay of the schedule behind another shared prefix (it
+captures every graph and leaves no page the measured replay could share),
+then the measured one, in which no graph may be captured, then the
+schedule once more under torch.profiler, whose count of each kernel must
+equal the launches counted in the measured replay:
+
+K1. ``benchmarks/bench_kv.py``'s traffic and engine (8 requests, prompts of
+    4 or 8 after a shared 24-token prefix, budgets of 5 or 9; 4 slots,
+    max_seq 64, T=4) in its two modes, ``dense_chunk8`` and
+    ``paged_pt8_chunk8``: each gives the reference's BENCH_10 kv row
+    (doorbells 43 / 29, prefill doorbells 32 / 20, prefill payload 960 /
+    576 B, pages allocated / peak / reused 26 / 17 / 12 and 4 prefix hits
+    for paged), and paged tokens equal dense's request by request;
+K2. C2's gemma-2b chat traffic behind a 64-token shared system prompt
+    (prompts of 192, 320 and 576) in four modes: dense whole-prompt (the
+    control) at T=1, dense with chunks of 128 at T=1, paged (pages of 16)
+    with chunks of 128 at T=1 and T=4: every request completes, the first
+    4 requests equal the control's tokens up to near-ties, paged reuses 4
+    pages a prefix hit and hits at least 56 times; one line per replay with
+    the host gap between decode launches, the prefill launches and the
+    largest, pages and one replay of each prefill and extend graph;
+K3. K2's paged engine at T=1 with a pool of two slots' pages: requests are
+    evicted for pages, and every survivor's tokens equal its tokens in K2's
+    paged mode, or first differ at a near-tie;
+
+one ``<card> | loadtest <arch> T=<T> spec=<spec>: ...`` line per replay
+(``spec=K<n> kv=<mode>`` in phase K);
 
 and last, time each kernel at its path's shape beside its bound, its plain
 version and one library call where there is one (the DMA-copy kernels are
@@ -161,7 +190,8 @@ from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import mamba as mamba_block_module  # noqa: E402
 from repro_torch.runtime.server import (ContinuousBatchingServer,  # noqa: E402
                                         Request, Server)
-from repro_torch.runtime.traffic import TrafficSpec, generate, replay  # noqa: E402
+from repro_torch.runtime.traffic import (Arrival, TrafficSpec,  # noqa: E402
+                                         generate, replay)
 
 TOL = {"rms_norm": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
        "flash_attention": {torch.float32: 3e-5, torch.bfloat16: 3e-2},
@@ -245,6 +275,41 @@ C_KERNELS = {"gemma-2b": ("rms_norm", "flash_attention"),
              "mamba2-780m": ("rms_norm", "ssd_scan")}
 C_RING = 1 << 16                     # session events kept for the spans
 LIVE_POLL_AFTER = 4                  # C2 realtime: poll once 4 have finished
+# phase K: chunked prefill and the paged KV backend, gemma-2b.  K1 is
+# benchmarks/bench_kv.py's traffic, engine and modes, held to the
+# reference's BENCH_10 kv rows; K2 is C2's gemma-2b chat traffic behind a
+# 64-token shared system prompt (prompts of 192, 320 and 576); K3 is K2's
+# paged engine with a pool of two slots' pages.
+K1_SPEC = dict(n_requests=8, rate=1000.0, prompt_lens=(4, 8),
+               new_tokens=(5, 9), seed=0, prefix_len=24)
+K1_ENGINE = dict(batch_size=4, max_seq=64, tokens_per_launch=4)
+K1_MODES = {"dense_chunk8": dict(kv="dense", prefill_chunk=8),
+            "paged_pt8_chunk8": dict(kv="paged", kv_page_tokens=8,
+                                     prefill_chunk=8)}
+# requests, new tokens, doorbells, prefill doorbells, prefill payload
+# bytes, pages allocated / peak / reused, prefix hits
+K1_ROWS = {"dense_chunk8": (8, 56, 43, 32, 960, 0, 0, 0, 0),
+           "paged_pt8_chunk8": (8, 56, 29, 20, 576, 26, 17, 12, 4)}
+K2_SPEC = dict(C2["gemma-2b"][0], prefix_len=64)
+K2_ENGINE = C2["gemma-2b"][1]
+K2_PAGED = dict(kv="paged", kv_page_tokens=16, prefill_chunk=128)
+# (mode, T, engine options); the control, whole-prompt dense, first
+K2_MODES = (("dense", 1, {}),
+            ("dense_chunk128", 1, dict(kv="dense", prefill_chunk=128)),
+            ("paged_pt16_chunk128", 1, K2_PAGED),
+            ("paged_pt16_chunk128", 4, K2_PAGED))
+K2_PREFIX_PAGES = K2_SPEC["prefix_len"] // K2_PAGED["kv_page_tokens"]
+# all 64 requests less the first admission round, which begins before any
+# prefix page is registered
+K2_MIN_HITS = K2_SPEC["n_requests"] - K2_ENGINE["batch_size"]
+K3_PAGES = 2 * (K2_ENGINE["max_seq"] // K2_PAGED["kv_page_tokens"])
+K_NEAR_TIES = 4                      # K2: the first 4 requests against (a)
+# K2's profiler check replays the schedule's first 12 requests (the first
+# admission round and 4 prefix hits): under torch.profiler a whole replay of
+# 64 took ~70 s a mode on the card
+K2_PROFILED = 12
+K_KV_COUNTERS = ("prefill_launches", "prefill_payload_bytes",
+                 "pages_allocated", "pages_reused", "prefix_hits")
 # phase 3: the engine's per-request prefills, batch 1 (gemma-2b's heads for
 # flash; the mamba2-780m scan at chunk = min(256, S))
 PREFILL_LENS = (4, 8, 128, 256, 512)
@@ -1257,6 +1322,24 @@ def oneshot_logits_at(model, params, prompt: np.ndarray, tokens: List[int],
     return logits[0, -1].float()
 
 
+def near_tie(model, params, t, want: List[int], max_seq: int,
+             device: torch.device, label: str, against: str) -> bool:
+    """Whether ``t``'s tokens first differ from ``want`` (the same request
+    served otherwise) where the one-shot's logits, teacher-forced on
+    ``want``, hold a near-tie: a top-2 gap below one bf16 step of the top
+    logit."""
+    j = next(i for i, (a, b) in enumerate(zip(want, t.tokens)) if a != b)
+    logits = oneshot_logits_at(model, params, t.request.prompt, want, j,
+                               max_seq, device)
+    top = logits.topk(2).values.tolist()
+    gap, step = top[0] - top[1], bf16_step(top[0])
+    log(f"{label}: uid {t.uid} differs from {against} at token {j} "
+        f"of {len(t.tokens)}: one-shot top-2 logits {top[0]:.5f} / "
+        f"{top[1]:.5f}, gap {gap:.5f} against one bf16 step {step:.5f}"
+        f" ({'a near-tie' if gap < step else 'NOT a near-tie'})")
+    return gap < step
+
+
 def check_against_oneshot(cfg: ModelConfig, params, tickets, n: int,
                           max_seq: int, device: torch.device, exact: bool,
                           label: str) -> None:
@@ -1275,17 +1358,8 @@ def check_against_oneshot(cfg: ModelConfig, params, tickets, n: int,
         if r.tokens == t.tokens:
             equal += 1
             continue
-        j = next(i for i, (a, b) in enumerate(zip(r.tokens, t.tokens))
-                 if a != b)
-        logits = oneshot_logits_at(solo.model, params, t.request.prompt,
-                                   r.tokens, j, max_seq, device)
-        top = logits.topk(2).values.tolist()
-        gap, step = top[0] - top[1], bf16_step(top[0])
-        log(f"{label}: uid {t.uid} differs from the one-shot at token {j} "
-            f"of {len(t.tokens)}: one-shot top-2 logits {top[0]:.5f} / "
-            f"{top[1]:.5f}, gap {gap:.5f} against one bf16 step {step:.5f}"
-            f" ({'a near-tie' if gap < step else 'NOT a near-tie'})")
-        ties.append((t.uid, gap < step))
+        ties.append((t.uid, near_tie(solo.model, params, t, r.tokens,
+                                     max_seq, device, label, "the one-shot")))
     log(f"{label}: {equal}/{len(served)} requests equal the one-shot "
         f"Server(batch_size=1) token for token"
         + ("" if exact else f"; {len(ties)} differ at a near-tie"
@@ -1542,6 +1616,339 @@ def continuous_path(card: str, device: torch.device
     return counts
 
 
+# ---------------------------------------------------------------- phase K
+def prefixed(spec: Dict[str, Any], vocab: int, seed: Optional[int]
+             ) -> List[Arrival]:
+    """The arrivals of ``spec``; with ``seed`` the same schedule (times,
+    lengths, budgets) behind another shared prefix, drawn from ``seed``: the
+    same counts, and no page of it cached by a replay on another prefix."""
+    arrivals = generate(TrafficSpec(**spec), vocab)
+    if seed is None:
+        return arrivals
+    n = spec["prefix_len"]
+    prefix = np.random.default_rng(seed).integers(0, vocab, n).astype(
+        np.int32)
+    return [Arrival(a.t, Request(
+        a.request.uid, np.concatenate([prefix, a.request.prompt[n:]]),
+        max_new_tokens=a.request.max_new_tokens)) for a in arrivals]
+
+
+def graph_objects(eng: ContinuousBatchingServer) -> Dict[str, Any]:
+    return {k: step.graph for k, step in eng.graphs().items()}
+
+
+def captured_nothing(eng: ContinuousBatchingServer, before: Dict[str, Any],
+                     label: str) -> None:
+    """No graph of the engine captured since ``before``: every prefill,
+    extend and decode step of the measured replay a replay of a graph the
+    warm replay captured (the decode's, when the engine was built)."""
+    after = graph_objects(eng)
+    new = sorted(k for k, g in after.items() if g is not before.get(k))
+    if new:
+        raise AssertionError(f"{label}: {new} captured in the measured replay")
+
+
+def fresh_cursor(eng: ContinuousBatchingServer) -> None:
+    """The chunked-prefill round-robin cursor back where a fresh engine's
+    starts, so that a replay on a warm engine takes a fresh engine's
+    schedule (the cursor is all the scheduling state an idle engine keeps)."""
+    eng._prefill_rr = 0
+
+
+def measured_replay(eng: ContinuousBatchingServer, spec: Dict[str, Any],
+                    label: str):
+    """A warm replay of ``spec``'s schedule behind another prefix (it
+    captures every graph and caches no page the measured replay could
+    share), then the measured replay of ``spec``, synchronous, kernel
+    launches zeroed just before and read just after.  Returns its tickets,
+    metrics, launches, its share of the backend's cumulative counters
+    (pages peak: the engine's, every replay having the same schedule) and
+    the session's event and doorbell marks before it."""
+    vocab = eng.cfg.vocab_size
+    replay(eng, prefixed(spec, vocab, 1001), realtime=False)
+    before, kv0 = graph_objects(eng), eng.kv.stats()
+    ev0, db0 = eng.session.n_events, eng.tracker.count
+    fresh_cursor(eng)
+    reset_launches()
+    tickets, m = replay(eng, prefixed(spec, vocab, None), realtime=False)
+    counts = dict(launches)
+    captured_nothing(eng, before, label)
+    kv1 = eng.kv.stats()
+    kv = {k: kv1.get(k, 0) - kv0.get(k, 0) for k in K_KV_COUNTERS}
+    kv["pages_peak"] = kv1.get("pages_peak", 0)
+    return tickets, m, counts, kv, ev0, db0
+
+
+def held_to_profiler(eng: ContinuousBatchingServer, spec: Dict[str, Any],
+                     label: str, measured: Optional[Dict[str, int]] = None
+                     ) -> Tuple[Dict[str, int], Dict[str, Any]]:
+    """``spec``'s schedule once more (behind a third prefix) in one
+    torch.profiler window: the profiler's count of each kernel equals the
+    launches counted in the window, and these equal ``measured`` (the
+    measured replay's, for the same schedule) when given.  Returns the
+    counted launches and the profiler's counts."""
+    fresh_cursor(eng)
+    reset_launches()
+    rows, _ = _profile(lambda: replay(eng, prefixed(
+        spec, eng.cfg.vocab_size, 1002), realtime=False), warmup=False)
+    counts = dict(launches)
+    if measured is not None and counts != measured:
+        raise AssertionError(f"{label}: the profiled replay counted "
+                             f"{counts}, the measured one {measured}")
+    prof = profiled_counts(rows, C_KERNELS[GEMMA.arch])
+    for name, by_sym in prof.items():
+        if any(c != counts.get(name, 0) for c in by_sym.values()):
+            raise AssertionError(f"{label}: {counts.get(name, 0)} counted "
+                                 f"{name} launches, the profiler saw {by_sym}")
+    if not counts.get("rms_norm"):
+        raise AssertionError(f"{label}: no rms_norm launch counted")
+    return counts, prof
+
+
+def held_to_tokens(cfg: ModelConfig, params, tickets,
+                   want: Dict[int, List[int]], max_seq: int,
+                   device: torch.device, label: str, against: str
+                   ) -> Tuple[int, int]:
+    """Each ticket's tokens equal ``want``'s for its request, or first
+    differ at a near-tie of the one-shot (teacher-forced on ``want``).
+    Returns (equal, near-ties)."""
+    model = get_model(cfg, impl="cuda", device=device)
+    equal = ties = 0
+    for t in tickets:
+        mine = want[t.uid][:len(t.tokens)]
+        if mine == t.tokens:
+            equal += 1
+        elif near_tie(model, params, t, mine, max_seq, device, label, against):
+            ties += 1
+        else:
+            raise AssertionError(f"{label}: uid {t.uid} differs from "
+                                 f"{against} at a position that is no "
+                                 f"near-tie")
+    return equal, ties
+
+
+def widest_gaps(eng: ContinuousBatchingServer, ev0: int,
+                starts: List[float], top: int = 3) -> str:
+    """The ``top`` widest gaps between decode launches (``starts``, host
+    submit times), each split into the host time spent in it inside spans:
+    ``serve.decode_iter`` (a decode's wait and harvest), ``serve.prefill``
+    and ``serve.prefill_chunk`` (a launch, and its wait when the prompt's
+    first token is read), and the rest."""
+    t0 = eng.session.t0
+    spans = [(t0 + e.t - e.dur_s, t0 + e.t, e.meta["span"])
+             for e in eng.session.timeline()[ev0:]
+             if e.name == SPAN_EVENT and e.meta.get("span") in (
+                 "serve.decode_iter", "serve.prefill", "serve.prefill_chunk")]
+    parts = []
+    for a, b in zip(starts, starts[1:]):
+        dec = pre = 0.0
+        for lo, hi, name in spans:
+            inside = max(0.0, min(hi, b) - max(lo, a))
+            if name == "serve.decode_iter":
+                dec += inside
+            else:
+                pre += inside
+        parts.append((b - a, dec, pre))
+    return ", ".join(
+        f"{g * 1e3:.3f} = decode_iter {d * 1e3:.3f} + prefill {p * 1e3:.3f} "
+        f"+ other {(g - d - p) * 1e3:.3f}"
+        for g, d, p in sorted(parts, reverse=True)[:top])
+
+
+def k1_runs(card: str, cfg: ModelConfig, params, device: torch.device
+            ) -> Dict[str, Dict[str, int]]:
+    """K1: bench_kv's spec and engine in both modes, each a warm replay and
+    the measured one: BENCH_10's kv row, no capture, launches held to the
+    profiler's; paged tokens equal dense's request by request.  Returns the
+    measured replays' kernel launches by mode."""
+    tokens, counts_by_mode = {}, {}
+    for mode, kw in K1_MODES.items():
+        label = f"{cfg.name} K1 {mode}"
+        eng = ContinuousBatchingServer(cfg, device=device, params=params,
+                                       **K1_ENGINE, **kw)
+        tickets, m, counts, kv, _, _ = measured_replay(eng, K1_SPEC, label)
+        row = (m["requests"], m["new_tokens"], m["doorbells"],
+               kv["prefill_launches"], kv["prefill_payload_bytes"],
+               kv["pages_allocated"], kv["pages_peak"], kv["pages_reused"],
+               kv["prefix_hits"])
+        log(f"{card} | loadtest {cfg.name} T={eng.T} spec=K1 kv={mode}: "
+            f"requests, new tokens, doorbells, prefill doorbells, prefill "
+            f"payload B, pages alloc/peak/reused, prefix hits {row} "
+            f"(BENCH_10 {K1_ROWS[mode]}); tokens/s {m['tokens_per_s']:.1f}, "
+            f"graphs {sorted(eng.graphs())}, none captured in the measured "
+            f"replay; kernel launches {counts}")
+        if row != K1_ROWS[mode]:
+            raise AssertionError(f"{label}: {row}, BENCH_10 {K1_ROWS[mode]}")
+        _, prof = held_to_profiler(eng, K1_SPEC, label, counts)
+        log(f"{label}: torch.profiler over the schedule replayed again {prof}")
+        tokens[mode] = {t.uid: list(t.tokens) for t in tickets}
+        counts_by_mode[mode] = counts
+        del eng, tickets
+        free()
+    dense, paged = (tokens[mode] for mode in K1_MODES)
+    differ = sorted(uid for uid in dense if paged[uid] != dense[uid])
+    log(f"{cfg.name} K1: paged tokens equal dense_chunk8's in "
+        f"{len(dense) - len(differ)}/{len(dense)} requests")
+    if differ:
+        raise AssertionError(f"{cfg.name} K1: paged tokens differ from dense "
+                             f"in requests {differ}")
+    return counts_by_mode
+
+
+def k2_runs(card: str, cfg: ModelConfig, params, device: torch.device
+            ) -> Dict[int, List[int]]:
+    """K2: chat traffic behind a shared system prompt in the four modes,
+    each a warm replay, the measured one, then the profiler's replay.
+    Returns the paged mode's tokens at T=1 by request."""
+    control: Dict[int, List[int]] = {}
+    paged_t1: Dict[int, List[int]] = {}
+    S = K2_ENGINE["max_seq"]
+    for mode, T, kw in K2_MODES:
+        label = f"{cfg.name} K2 {mode} T={T}"
+        eng = ContinuousBatchingServer(
+            cfg, tokens_per_launch=T, device=device, params=params,
+            session=TraceSession(label, ring_size=C_RING), **K2_ENGINE, **kw)
+        tickets, m, counts, kv, ev0, db0 = measured_replay(eng, K2_SPEC,
+                                                           label)
+        n = K2_SPEC["n_requests"]
+        if (m["completed"], m["evicted"], m["rejected"]) != (n, 0, 0):
+            raise AssertionError(f"{label}: {m}")
+        starts, between, n = [], [], 0
+        for r in eng.tracker.records[db0:]:
+            if r.name != "decode_slots":
+                n += 1
+                continue
+            starts.append(r.t_submit)
+            between.append(n)
+            n = 0
+        gaps = np.diff(starts) * 1e3
+        # the time between two harvests of the decode block: between two
+        # tokens of a slot that decodes in both
+        harvests = [e.t for e in eng.session.timeline()[ev0:]
+                    if e.name == SPAN_EVENT
+                    and e.meta.get("span") == "serve.decode_iter"]
+        itl = np.diff(harvests) * 1e3
+        # prefill launches run between two decode launches: at most one a
+        # scheduler iteration, more when no slot is decodable
+        between = np.asarray(between[1:])
+        one = gaps[between <= 1]
+        sizes = [e.meta.get("size", e.meta.get("prompt_len"))
+                 for e in eng.session.timeline()[ev0:]
+                 if e.name == SPAN_EVENT and e.meta.get("span") in (
+                     "serve.prefill", "serve.prefill_chunk")]
+        if len(sizes) != kv["prefill_launches"]:
+            raise AssertionError(f"{label}: {len(sizes)} prefill spans, "
+                                 f"{kv['prefill_launches']} launches")
+        graphs = eng.graphs()
+        replay_ms = time_ms(graphs[f"decode T={T}"], reps=4, warmup=1)
+        prefill_ms = {k: time_ms(step, reps=4, warmup=1)
+                      for k, step in sorted(graphs.items())
+                      if not k.startswith("decode")}
+        log(f"{card} | loadtest {cfg.name} T={T} spec=K2 kv={mode}: tokens/s "
+            f"{m['tokens_per_s']:.1f}, latency p50/p99 "
+            f"{m['latency_p50_s'] * 1e3:.3f}/{m['latency_p99_s'] * 1e3:.3f} "
+            f"ms, TTFT p50/p99 {m['ttft_p50_s'] * 1e3:.3f}/"
+            f"{m['ttft_p99_s'] * 1e3:.3f} ms, decode launch to launch p50/p99"
+            f" {np.percentile(gaps, 50):.3f}/{np.percentile(gaps, 99):.3f} ms"
+            f" over {len(starts)} launches: host gap beyond one decode replay "
+            f"({replay_ms:.3f} ms) p50/p99 "
+            f"{np.percentile(gaps, 50) - replay_ms:.3f}/"
+            f"{np.percentile(gaps, 99) - replay_ms:.3f} ms (p99 "
+            f"{np.percentile(one, 99) - replay_ms:.3f} ms over the {len(one)} "
+            f"gaps with at most one prefill launch; at most "
+            f"{between.max()} between two decode launches); decode harvest to"
+            f" harvest p50/p99 {np.percentile(itl, 50):.3f}/"
+            f"{np.percentile(itl, 99):.3f} ms; prefill launches "
+            f"{kv['prefill_launches']}, largest {max(sizes)} tokens; prefix "
+            f"hits {kv['prefix_hits']}, pages peak {kv['pages_peak']}, "
+            f"pages reused {kv['pages_reused']}; one replay "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in prefill_ms.items())
+            + f" ({m['completed']} completed, {m['new_tokens']} new tokens, "
+            f"doorbells {m['doorbells']}, wall {m['wall_s']:.3f} s)")
+        log(f"{label}: widest gaps between decode launches, ms: "
+            f"{widest_gaps(eng, ev0, starts)}")
+        profile_window(graphs[f"decode T={T}"], f"{card} | {label} one "
+                       f"decode replay", top=6)
+        window, prof = held_to_profiler(
+            eng, dict(K2_SPEC, n_requests=K2_PROFILED), label)
+        log(f"{label}: kernel launches {counts}; the schedule's first "
+            f"{K2_PROFILED} requests replayed again: kernel launches "
+            f"{window}, torch.profiler's {prof}")
+        mine = {t.uid: list(t.tokens) for t in tickets}
+        if kw.get("kv") == "paged":
+            if (kv["pages_reused"] != K2_PREFIX_PAGES * kv["prefix_hits"]
+                    or kv["prefix_hits"] < K2_MIN_HITS):
+                raise AssertionError(
+                    f"{label}: {kv['prefix_hits']} prefix hits reusing "
+                    f"{kv['pages_reused']} pages; expected at least "
+                    f"{K2_MIN_HITS}, {K2_PREFIX_PAGES} pages each")
+            if T == 1:
+                paged_t1 = mine
+        if not kw:
+            control = mine
+        else:
+            first = tickets[:K_NEAR_TIES]
+            equal, ties = held_to_tokens(cfg, params, first, control, S,
+                                         device, label, "dense whole-prompt")
+            log(f"{label}: the first {len(first)} requests equal dense "
+                f"whole-prompt's in {equal}, first differ at a near-tie in "
+                f"{ties}")
+        del eng, tickets, graphs
+        free()
+    return paged_t1
+
+
+def k3_run(card: str, cfg: ModelConfig, params, device: torch.device,
+           want: Dict[int, List[int]]) -> None:
+    """K3: K2's paged engine at T=1 with a pool of two slots' pages, one
+    synchronous replay: some request evicted for pages; every survivor's
+    tokens equal its tokens in K2's paged mode, or first differ at a
+    near-tie (a prefix prefilled again under pressure is cut into other
+    chunks)."""
+    label = f"{cfg.name} K3 paged_pt16_chunk128 kv_pages={K3_PAGES}"
+    eng = ContinuousBatchingServer(cfg, tokens_per_launch=1, device=device,
+                                   params=params, kv_pages=K3_PAGES,
+                                   **K2_ENGINE, **K2_PAGED)
+    tickets, m = replay(eng, prefixed(K2_SPEC, cfg.vocab_size, None),
+                        realtime=False)
+    kv = m["kv"]
+    evicted = [t for t in tickets if t.status == "evicted"]
+    survivors = [t for t in tickets if t.status == "done"]
+    log(f"{card} | loadtest {cfg.name} T=1 spec=K3 kv=paged_pt16_chunk128 "
+        f"pages={K3_PAGES}: {m['completed']} completed, {m['evicted']} "
+        f"evicted ({collections.Counter(t.reason for t in evicted)}), "
+        f"tokens/s {m['tokens_per_s']:.1f}, prefix hits {kv['prefix_hits']}, "
+        f"pages peak {kv['pages_peak']}/{kv['pages_total']}, allocated "
+        f"{kv['pages_allocated']}, reused {kv['pages_reused']}")
+    if not any(t.reason == "kv_pages" for t in evicted):
+        raise AssertionError(f"{label}: no kv_pages eviction")
+    if len(survivors) + len(evicted) != K2_SPEC["n_requests"]:
+        raise AssertionError(f"{label}: {m}")
+    equal, ties = held_to_tokens(cfg, params, survivors, want,
+                                 K2_ENGINE["max_seq"], device, label,
+                                 "K2's paged mode")
+    log(f"{label}: {equal}/{len(survivors)} survivors equal their tokens "
+        f"in K2's paged mode, {ties} first differ at a near-tie")
+    del eng, tickets, survivors, evicted
+    free()
+
+
+def kv_path(card: str, device: torch.device) -> Dict[str, Dict[str, int]]:
+    """Phase K for gemma-2b at full width in bf16; returns K1's measured
+    replays' kernel launches by mode."""
+    cfg = ARCHS[GEMMA.arch]
+    params = get_model(cfg, impl="cuda", device=device).init_params(seed=0)
+    log(f"phase K1: {cfg.name} bench_kv's spec {K1_SPEC}, {K1_ENGINE}")
+    counts = k1_runs(card, cfg, params, device)
+    log(f"phase K2: {cfg.name} chat traffic {K2_SPEC}, {K2_ENGINE}")
+    paged = k2_runs(card, cfg, params, device)
+    log(f"phase K3: {cfg.name} K2's paged engine with {K3_PAGES} pages")
+    k3_run(card, cfg, params, device, paged)
+    del params
+    free()
+    return counts
+
+
 # ---------------------------------------------------------------- kernels
 def roofline(nbytes: int, flops: int) -> Dict[str, Any]:
     """Bound of bf16 work on one H100 SXM (NVIDIA's published peaks)."""
@@ -1691,6 +2098,9 @@ def main() -> int:
     log("phase C: continuous batching, ContinuousBatchingServer on DenseKV")
     c_counts = continuous_path(card, device)
 
+    log("phase K: chunked prefill and the paged KV backend, gemma-2b")
+    k_counts = kv_path(card, device)
+
     log("kernels at their paths' shapes")
     kernels = [rms_entry(device), flash_entry(device), ssd_entry(device)]
     kernels[1]["long_s"] = flash_long(card, device)
@@ -1710,6 +2120,10 @@ def main() -> int:
             if c.get(e["name"], 0):
                 e["launches_by_path"][f"{arch} continuous"] = {
                     "C1 T=1 measured replay": c[e["name"]]}
+        k1 = {f"K1 {mode} measured replay": c[e["name"]]
+              for mode, c in k_counts.items() if c.get(e["name"], 0)}
+        if k1:
+            e["launches_by_path"][f"{GEMMA.arch} kv"] = k1
         log(f"{card} | {e['name']} at {e['shape']}: device {e['ms']:.5f} ms "
             f"(per call with host {e['call_ms']:.5f} ms), bound "
             f"{e['bound_ms']:.5f} ms ({e['bound_by']}), plain "

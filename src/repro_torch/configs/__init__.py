@@ -1,6 +1,8 @@
 """Model configurations: the port's own copy of ``repro.configs``.
 
-The dense architectures and the Mamba2 (ssm) one are registered.
+The dense architectures and the Mamba2 (ssm) one are registered; the
+serving geometry (``ServeShape``, ``SERVE_SHAPES``, ``kv_geometry``) and the
+assigned input shapes come from ``shapes``.
 """
 from __future__ import annotations
 
@@ -8,6 +10,8 @@ from typing import Dict
 
 from . import gemma_2b, mamba2_780m, qwen3_8b
 from .base import ModelConfig
+from .shapes import (SERVE_SHAPES, SHAPES, ServeShape, ShapeConfig,
+                     applicable, kv_geometry, skip_reason)
 
 ARCHS: Dict[str, ModelConfig] = {
     "gemma-2b": gemma_2b.CONFIG,
@@ -21,4 +25,6 @@ SMOKE_ARCHS: Dict[str, ModelConfig] = {
     "mamba2-780m": mamba2_780m.SMOKE,
 }
 
-__all__ = ["ARCHS", "SMOKE_ARCHS", "ModelConfig"]
+__all__ = ["ARCHS", "SMOKE_ARCHS", "ModelConfig", "SHAPES", "ShapeConfig",
+           "SERVE_SHAPES", "ServeShape", "kv_geometry", "applicable",
+           "skip_reason"]

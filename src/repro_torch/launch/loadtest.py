@@ -5,8 +5,10 @@
 
 The port of ``repro.launch.loadtest``, every flag kept.  It runs on the
 card unless ``--device cpu`` is given; weights are the port's seeded init.
-``--kv paged`` and ``--prefill-chunk N`` (N > 0) raise the engine's
-``ValueError``: the paged backend and chunked prefill are not ported yet.
+``--kv paged`` serves from a page pool with block tables and shared-prefix
+pages, ``--prefill-chunk N`` (N > 0) prefills longer prompts N tokens a
+launch, and ``--prefix-len N`` opens every prompt with the same N tokens
+(system-prompt traffic).
 
 Generates seeded Poisson traffic (mixed prompt/output lengths), replays it
 against a :class:`~repro_torch.runtime.server.ContinuousBatchingServer` — by
@@ -80,15 +82,14 @@ def main(argv=None) -> int:
                     help="KV-cache backend (paged adds block tables + "
                          "shared-prefix page reuse)")
     ap.add_argument("--kv-page-tokens", type=int, default=None,
-                    help="paged backend page size in tokens (unset -> 16; "
-                         "the paged backend is not ported)")
+                    help="paged backend page size in tokens (unset -> 16)")
     ap.add_argument("--kv-pages", type=int, default=None,
                     help="paged pool size in pages (unset -> every slot "
                          "fully grown: exhaustion impossible)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="max tokens per prefill launch; longer prompts "
                          "are chunked and interleaved with decode iters "
-                         "(unset or 0 = off; chunking is not ported)")
+                         "(unset or 0 = off)")
     ap.add_argument("--sched", default="fifo",
                     choices=("fifo", "priority", "fair"),
                     help="admission scheduling policy")

@@ -4,6 +4,7 @@
         [--smoke] [--batch 4] [--max-seq 128] [--prompt-len 8] \
         [--new-tokens 16] [--tokens-per-launch 4] [--seed 0] [--device cuda] \
         [--continuous [--requests N] [--sched fifo|priority|fair] \
+         [--kv dense|paged] [--kv-page-tokens P] [--prefill-chunk C] \
          [--live [PORT]]] [--trace PATH] [--profile]
 
 Runs on the card unless ``--device cpu`` is given.  Weights are the port's
@@ -14,9 +15,10 @@ engine (queued admission, per-request KV slots) instead of one static
 batch; ``python -m repro_torch.launch.loadtest`` is the full traffic
 harness.  ``--live [PORT]`` (with ``--continuous``) exposes the engine's
 live session summary over HTTP while it runs (``GET /summary``,
-``GET /stream``; :mod:`repro_torch.obs.live`).  ``--kv paged`` and
-``--prefill-chunk N`` (N > 0) raise the engine's ``ValueError``: neither is
-ported yet.
+``GET /stream``; :mod:`repro_torch.obs.live`).  ``--kv paged`` serves from
+a page pool with block tables and shared-prefix pages (``--kv-page-tokens``
+tokens a page), and ``--prefill-chunk N`` (N > 0) prefills longer prompts
+N tokens a launch, interleaved with decode.
 
 ``--trace PATH`` writes a fleet-identified JSONL shard of the run
 (``host``/``process`` tags, per-process filename) for
@@ -50,11 +52,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--continuous", action="store_true",
                     help="serve through the continuous-batching engine")
     ap.add_argument("--kv", default="dense", choices=("dense", "paged"),
-                    help="with --continuous: KV-cache backend (only dense "
-                         "is ported)")
+                    help="with --continuous: KV-cache backend")
+    ap.add_argument("--kv-page-tokens", type=int, default=None,
+                    help="paged backend page size in tokens (unset -> 16)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
-                    help="max tokens per prefill launch (chunking is not "
-                         "ported)")
+                    help="max tokens per prefill launch (unset or 0 = "
+                         "whole-prompt)")
     ap.add_argument("--sched", default="fifo",
                     choices=("fifo", "priority", "fair"),
                     help="with --continuous: admission scheduling policy")
@@ -85,8 +88,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         srv = ContinuousBatchingServer(
             cfg, batch_size=args.batch, max_seq=args.max_seq,
             tokens_per_launch=args.tokens_per_launch, seed=args.seed,
-            session=session, kv=args.kv, prefill_chunk=args.prefill_chunk,
-            sched=args.sched, device=args.device)
+            session=session, kv=args.kv,
+            kv_page_tokens=args.kv_page_tokens,
+            prefill_chunk=args.prefill_chunk, sched=args.sched,
+            device=args.device)
     else:
         srv = Server(cfg, batch_size=args.batch, max_seq=args.max_seq,
                      tokens_per_launch=args.tokens_per_launch, seed=args.seed,

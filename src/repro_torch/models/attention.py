@@ -5,8 +5,9 @@ KV-cache decode path.
 ``"cuda"`` is the flash-attention kernel (its wrapper takes the plain version
 for CPU tensors), ``"ref"`` the dense O(S²)-memory softmax.  The reference's
 chunked causal path, which only bounds memory for long training sequences,
-is not ported.  Decode attention has no kernel in the reference and stays
-plain PyTorch.
+is not ported.  Decode attention, chunk (extend) attention and the paged
+cache's block-table gather and scatter have no kernel in the reference and
+stay plain PyTorch.
 """
 from __future__ import annotations
 
@@ -19,8 +20,9 @@ from ..kernels.flash_attention.ops import flash_attention
 from .layers import Params, apply_rope, rms_norm, rotary
 
 __all__ = ["attention", "decode_attention", "decode_positions",
-           "DecodePositions", "init_kv_cache", "dense_causal_attention",
-           "IMPLS"]
+           "DecodePositions", "extend_attention", "extend_positions",
+           "ExtendPositions", "gather_block_table", "scatter_block_rows",
+           "init_kv_cache", "dense_causal_attention", "IMPLS"]
 
 IMPLS = ("cuda", "ref")
 
@@ -164,3 +166,122 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     out = torch.einsum("bgrs,bsgd->bgrd", probs.to(v_cache.dtype), v_cache)
     out = out.reshape(B, 1, h, hd)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+class ExtendPositions(NamedTuple):
+    """Where one prompt chunk writes and what it reads: the same in every
+    layer, so :func:`extend_positions` computes it once a chunk."""
+
+    rows: torch.Tensor            # [C] int64, the clamped write rows
+    masked: torch.Tensor          # [C, S_max], positions past each query
+    sin: Optional[torch.Tensor]   # [1, C, hd/2], rope at start + arange(C)
+    cos: Optional[torch.Tensor]
+
+
+def extend_positions(cfg: ModelConfig, start: torch.Tensor, chunk: int,
+                     max_seq: int) -> ExtendPositions:
+    """The positions of a chunk of ``chunk`` prompt tokens at global
+    position ``start`` (a ``[]`` int32 tensor on the device, so that one
+    graph serves every start).  The write rows start at ``start`` clamped
+    to ``max_seq - chunk``, as the reference's ``dynamic_update_slice``
+    clamps; the rope positions and the mask use ``start`` itself."""
+    dev = start.device
+    ar = torch.arange(chunk, device=dev)
+    q_pos = start.long() + ar
+    rows = start.long().clamp(0, max_seq - chunk) + ar
+    masked = torch.arange(max_seq, device=dev)[None, :] > q_pos[:, None]
+    sin = cos = None
+    if cfg.pos_embed == "rope":
+        sin, cos = rotary(q_pos[None, :], cfg.hd, cfg.rope_theta)
+    return ExtendPositions(rows, masked, sin, cos)
+
+
+def extend_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     pos: ExtendPositions) -> torch.Tensor:
+    """Prompt-chunk attention against a cache (chunked prefill).
+
+    x: [B, C, D], C new prompt positions from ``start``; k_cache/v_cache:
+    [B, S_max, Hkv, hd] holding the first ``start`` positions; ``pos`` from
+    :func:`extend_positions`.  The chunk's K/V are written into the caches
+    *in place* at rows [start, start+C) on device-side indices, and the
+    chunk's queries attend over the whole buffer, positions past each
+    query masked (they get exactly zero softmax weight).  Returns out
+    [B, C, D].
+    """
+    B, C, D = x.shape
+    h, hk, hd = cfg.n_heads_padded, cfg.n_kv_heads, cfg.hd
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k_new = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q)
+        k_new = rms_norm(p["k_norm"], k_new)
+    if pos.sin is not None:
+        q = apply_rope(q, pos.sin, pos.cos)
+        k_new = apply_rope(k_new, pos.sin, pos.cos)
+    k_cache.index_copy_(1, pos.rows, k_new.to(k_cache.dtype))
+    v_cache.index_copy_(1, pos.rows, v_new.to(v_cache.dtype))
+    n_rep = h // hk
+    scale = hd ** -0.5
+    # GQA without repeating the cache: query head g * n_rep + r reads KV
+    # head g, as the reference's _repeat_kv lays them out
+    q_ = q.reshape(B, C, hk, n_rep, hd)
+    scores = torch.einsum("bcgrd,bsgd->bgrcs", q_, k_cache).float() * scale
+    scores = scores.masked_fill(pos.masked, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bgrcs,bsgd->bcgrd", probs, v_cache)
+    return torch.einsum("bshk,hkd->bsd", out.reshape(B, C, h, hd), p["wo"])
+
+
+# --------------------------------------------------------------------------
+# paged KV: block-table gather / scatter
+# --------------------------------------------------------------------------
+def gather_block_table(pool: torch.Tensor, table: torch.Tensor,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gather pages into contiguous caches, the dense decode layout.
+
+    pool: [L, P, page_tokens, Hkv, hd]; table: [n_blk] int32 physical page
+    ids (one slot, returns [L, 1, n_blk*page_tokens, Hkv, hd]) or [B, n_blk]
+    (B slots, returns [L, B, n_blk*page_tokens, Hkv, hd]).  ``out``, of the
+    returned shape, receives the gather in place (a fixed buffer a CUDA
+    graph reads).
+    """
+    L, P, pt, Hk, hd = pool.shape
+    tables = table.reshape(-1, table.shape[-1])
+    B, n_blk = tables.shape
+    if out is None:
+        out = torch.empty((L, B, n_blk * pt, Hk, hd), dtype=pool.dtype,
+                          device=pool.device)
+    torch.index_select(pool, 1, tables.reshape(-1).long(),
+                       out=out.view(L, B * n_blk, pt, Hk, hd))
+    return out
+
+
+def scatter_block_rows(pool: torch.Tensor, table: torch.Tensor,
+                       rows: torch.Tensor, start: torch.Tensor) -> None:
+    """Write ``rows`` at logical positions start..start+n-1, in place.
+
+    One slot: table [n_blk], rows [L, n, Hkv, hd], start [] int32; or B
+    slots at once: table [B, n_blk], rows [L, B, n, Hkv, hd], start [B].
+    Positions past ``S - 1`` (``S = n_blk * page_tokens``) clamp to ``S -
+    1`` and the page index to ``n_blk - 1``, as the reference clamps the
+    dense cache's write, so a request finishing at the KV cap behaves as in
+    dense.  There the reference's loop lets the *last* row win; a scatter
+    with repeated indices has no defined winner on CUDA, so the last row is
+    written again after the scatter.
+    """
+    L, P, pt, Hk, hd = pool.shape
+    if table.dim() == 1:
+        table, rows, start = table[None], rows[:, None], start.reshape(1)
+    B, n_blk = table.shape
+    n = rows.shape[2]
+    S = n_blk * pt
+    pos = (start.long()[:, None]
+           + torch.arange(n, device=pool.device)).clamp(max=S - 1)
+    page = table.long().gather(1, (pos // pt).clamp(max=n_blk - 1))
+    flat = page * pt + pos % pt                       # [B, n] pool rows
+    pool_rows = pool.view(L, P * pt, Hk, hd)
+    pool_rows.index_copy_(1, flat.reshape(-1),
+                          rows.reshape(L, B * n, Hk, hd).to(pool.dtype))
+    pool_rows.index_copy_(1, flat[:, -1], rows[:, :, -1].to(pool.dtype))

@@ -14,8 +14,9 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
-from .attention import (IMPLS, DecodePositions, attention, decode_attention,
-                        decode_positions, init_kv_cache)
+from .attention import (IMPLS, DecodePositions, ExtendPositions, attention,
+                        decode_attention, decode_positions, extend_attention,
+                        extend_positions, init_kv_cache)
 from .layers import (Params, Spec, dtype_of, embed, embedding_specs,
                      init_from_specs, layer_params, mlp, rms_norm, unembed)
 
@@ -62,6 +63,14 @@ def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  k_cache: torch.Tensor, v_cache: torch.Tensor,
                  pos: DecodePositions) -> torch.Tensor:
     x = x + decode_attention(p["attn"], cfg, rms_norm(p["ln1"], x),
+                             k_cache, v_cache, pos)
+    return x + mlp(p["mlp"], rms_norm(p["ln2"], x), cfg.act)
+
+
+def block_extend(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                 k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 pos: ExtendPositions) -> torch.Tensor:
+    x = x + extend_attention(p["attn"], cfg, rms_norm(p["ln1"], x),
                              k_cache, v_cache, pos)
     return x + mlp(p["mlp"], rms_norm(p["ln2"], x), cfg.act)
 
@@ -171,6 +180,30 @@ class TransformerLM:
         x = rms_norm(params["final_norm"], x)
         logits = unembed(params["emb"], x[:, -1:, :])
         state["length"].fill_(S)
+        return state, logits
+
+    def prefill_extend(self, params: Params, state: Dict[str, torch.Tensor],
+                       tokens: torch.Tensor
+                       ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """Extend a decode state by one prompt chunk (chunked prefill).
+
+        tokens: [B, C], the prompt's positions ``state["length"]`` ..
+        ``length + C - 1``; the length is a ``[]`` tensor on the device, so
+        one captured graph serves every start.  ``state`` is updated in
+        place (the caches at those rows, then ``length + C``) and returned
+        with the logits of the chunk's last position.
+        """
+        cfg = self.cfg
+        x = embed(params["emb"], tokens, cfg.embed_scale)
+        length = state["length"]
+        pos = extend_positions(cfg, length, tokens.shape[1],
+                               state["k"].shape[2])
+        for i in range(cfg.n_layers):
+            x = block_extend(layer_params(params["layers"], i), cfg, x,
+                             state["k"][i], state["v"][i], pos)
+        x = rms_norm(params["final_norm"], x)
+        logits = unembed(params["emb"], x[:, -1:, :])
+        length.add_(tokens.shape[1])
         return state, logits
 
     def decode_step(self, params: Params, state: Dict[str, torch.Tensor],

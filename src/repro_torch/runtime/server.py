@@ -16,8 +16,10 @@ the decode state, the prompt ``[B, max_seq]``, the decode input token
 the same step functions run directly on the same buffers.
 
 The continuous engine admits queued requests into KV slots between decode
-launches; its graphs (one prefill a prompt length, one decode over all
-slots) live in its KV backend, ``runtime/kv.py``.
+launches; its graphs (one prefill a prompt length, one extend a prompt-chunk
+length, one decode over all slots) live in its KV backend,
+``runtime/kv.py``: dense slots or a page pool with block tables, with or
+without chunked prefill.
 """
 from __future__ import annotations
 
@@ -258,7 +260,12 @@ class ContinuousBatchingServer(_Serving):
     length), so a request's greedy chain is the one ``Server.serve([request])``
     gives, whenever it joined and whoever shared the batch (in fp32 exactly;
     in bf16 up to near-ties, since the batched decode's products run at
-    M = B rather than 1).
+    M = B rather than 1).  With ``prefill_chunk=C`` a longer prompt is only
+    *started* at admission, then advanced one ``C``-token chunk a scheduler
+    iteration (round-robin over the prompts still prefilling), so active
+    slots keep decoding underneath; on the card the chunks' attention is
+    the plain masked softmax, not the flash kernel, so bf16 tokens equal
+    the whole-prompt prefill's up to near-ties (fp32 exactly).
 
     Lifecycle events land on the session timeline as ``progress`` events
     (``serve.submit/admit/finish/evict/reject``); a finish event carries
@@ -272,9 +279,13 @@ class ContinuousBatchingServer(_Serving):
     active slots, queue depth, ticket fates).  :meth:`start_live_endpoint`
     serves that over HTTP (``GET /summary``, ``GET /stream``).
 
-    ``kv`` names the backend; only ``"dense"`` is ported, and ``"paged"``
-    or ``prefill_chunk > 0`` raise ``ValueError``.  Runs on the card unless
-    ``device="cpu"``; ``params`` as for :class:`Server`.
+    ``kv`` names the backend: ``"dense"`` (a full ``max_seq`` cache a
+    slot) or ``"paged"`` (a pool of ``kv_pages`` pages of ``kv_page_tokens``
+    tokens, block tables, shared-prefix pages; pool exhaustion evicts with
+    ``reason="kv_pages"``); both need a model with ``prefill_extend`` for
+    ``"paged"`` or ``prefill_chunk > 0`` (Mamba2 has none and raises
+    ``ValueError``).  Runs on the card unless ``device="cpu"``; ``params``
+    as for :class:`Server`.
     """
 
     def __init__(self, cfg: ModelConfig, batch_size: int, max_seq: int,
@@ -295,6 +306,8 @@ class ContinuousBatchingServer(_Serving):
         self.sched_policy = make_policy(sched)
         self.tickets: List[RequestTicket] = []      # submit order, all fates
         self._slot_tix: List[Optional[RequestTicket]] = [None] * self.B
+        self._prefilling: set = set()               # slots mid-chunked-prefill
+        self._prefill_rr = 0                        # round-robin tick cursor
         # per-request causal spans: a request's lifetime crosses scheduler
         # iterations (and the decode launch is shared by every active slot),
         # so these are manual handles closed in _finish with *declared*
@@ -308,14 +321,19 @@ class ContinuousBatchingServer(_Serving):
         self.session.add_sink(self.live)
         self._live_server: Optional[LiveServer] = None
 
+        # None -> default (the tuned policy is not ported); explicit invalid
+        # values (e.g. 0) must reach kv_geometry's validation instead of
+        # being silently coerced
         self.kv = make_kv(
             self, kv,
             page_tokens=16 if kv_page_tokens is None else kv_page_tokens,
-            pages=kv_pages, prefill_chunk=prefill_chunk or 0)
+            pages=kv_pages,
+            prefill_chunk=0 if prefill_chunk is None else prefill_chunk)
 
     def graphs(self) -> Dict[str, CapturedStep]:
         """The engine's captured steps by name: one prefill a distinct
-        prompt length, and the one decode."""
+        prompt length, one extend a distinct chunk length, and the one
+        decode."""
         return self.kv.graphs()
 
     # -- intake (any thread) ----------------------------------------------
@@ -417,21 +435,36 @@ class ContinuousBatchingServer(_Serving):
 
     def _on_first_token(self, tix: RequestTicket, tok0: int) -> None:
         """Prefill completed: record token 0, finish degenerate requests."""
+        self._prefilling.discard(tix.slot)
         tix.tokens.append(tok0)
         tix.t_first = time.perf_counter()
         if len(tix.tokens) >= min(tix.request.max_new_tokens, tix.cap):
             self._finish(tix)           # degenerate 1-token request
 
     def _admit(self) -> int:
-        """Move queued tickets into free slots, prefilling each whole (one
-        launch, at its exact prompt length)."""
+        """Move queued tickets into free slots.
+
+        Whole-prompt admission (no chunking) prefills here, one launch at
+        the prompt's exact length.  Prompts longer than the backend's
+        ``prefill_chunk`` only *start* here; :meth:`_prefill_tick` advances
+        them one bounded launch per scheduler iteration so active slots
+        keep decoding underneath.
+        """
         admitted = 0
         for slot in self._free_slots():
             tix = self.queue.pop(self.sched_policy)
             if tix is None:
                 break
             r = tix.request
-            self.kv.begin(slot, tix)
+            if not self.kv.begin(slot, tix):
+                # page pool exhausted even after reclaiming shared pages
+                tix.status, tix.reason = "evicted", "kv_pages"
+                tix.t_done = time.perf_counter()
+                self.session.emit("progress", "serve.evict", uid=tix.uid,
+                                  reason=tix.reason)
+                self._end_request_span(tix)
+                self.sched_policy.note_finished(tix)
+                continue
             tix.status, tix.slot = "active", slot
             tix.t_admit = time.perf_counter()
             # KV capacity: decode token j (0-based; token 0 comes straight
@@ -439,17 +472,33 @@ class ContinuousBatchingServer(_Serving):
             # which must stay below max_seq.
             tix.cap = self.max_seq - len(r.prompt) + 1
             self._slot_tix[slot] = tix
-            tok0 = self.kv.prefill_step(slot)       # one whole-prompt launch
+            self._prefilling.add(slot)
+            chunk = self.kv.chunk
+            whole = not (chunk and len(r.prompt) > chunk)
+            tok0 = self.kv.prefill_step(slot) if whole else None
             self.session.emit("progress", "serve.admit", uid=tix.uid,
                               slot=slot, queued_s=tix.t_admit - tix.t_submit)
-            self._on_first_token(tix, tok0)
+            if whole:
+                self._on_first_token(tix, tok0)
             admitted += 1
         return admitted
 
     def _prefill_tick(self) -> None:
-        """Advance one pending chunked prefill by one launch: a no-op, since
-        chunked prefill is not ported and :meth:`_admit` prefills every
-        prompt whole."""
+        """Advance at most ONE pending chunked prefill by one launch.
+
+        One bounded launch per scheduler iteration bounds the gap between
+        decode launches; round-robin across prefilling slots keeps long
+        prompts from starving each other.
+        """
+        pending = sorted(s for s in self._prefilling
+                         if self._slot_tix[s] is not None)
+        if not pending:
+            return
+        slot = pending[self._prefill_rr % len(pending)]
+        self._prefill_rr += 1
+        tok0 = self.kv.prefill_step(slot)
+        if tok0 is not None:
+            self._on_first_token(self._slot_tix[slot], tok0)
 
     def _finish(self, tix: RequestTicket, reason: Optional[str] = None
                 ) -> None:
@@ -461,6 +510,7 @@ class ContinuousBatchingServer(_Serving):
         tix.t_done = time.perf_counter()
         tix.request.tokens = list(tix.tokens)
         self._slot_tix[tix.slot] = None
+        self._prefilling.discard(tix.slot)
         self.kv.release(tix.slot)
         self.session.emit(
             "progress", "serve.evict" if evicted else "serve.finish",
@@ -471,14 +521,27 @@ class ContinuousBatchingServer(_Serving):
         self.sched_policy.note_finished(tix)
 
     def step(self) -> bool:
-        """One scheduler iteration: admit, then one decode launch across all
-        decodable slots; harvest per-slot tokens.  Returns False if idle."""
+        """One scheduler iteration: admit, advance one chunked prefill,
+        then one decode launch across all decodable slots; harvest per-slot
+        tokens.  Returns False if idle."""
         self._admit()
         self._prefill_tick()
         decodable = [slot for slot, tix in enumerate(self._slot_tix)
-                     if tix is not None]
+                     if tix is not None and slot not in self._prefilling]
         if not decodable:
-            return False
+            return self.n_active > 0    # prefills pending still count
+        # paged backend: grow block tables for the coming T writes; slots
+        # the pool cannot serve are evicted (reason="kv_pages") and their
+        # freed pages immediately retried for the survivors
+        while True:
+            victims = self.kv.reserve_decode(decodable)
+            if not victims:
+                break
+            for slot in victims:
+                self._finish(self._slot_tix[slot], reason="kv_pages")
+                decodable.remove(slot)
+            if not decodable:
+                return self.n_active > 0
         with self.session.span("serve.decode_iter", active=self.n_active):
             blocks = self.kv.decode()               # [B, T] host sync
             for slot in decodable:

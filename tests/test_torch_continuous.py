@@ -359,16 +359,19 @@ def test_engine_scheduling_end_to_end(sched):
 
 
 def test_make_kv_rejects_unknown_paged_and_chunked():
-    eng = object.__new__(ContinuousBatchingServer)   # no engine needed
+    """An unknown backend is refused; the paged backend and a chunked
+    dense one build on an engine (tests/test_torch_kv.py serves them)."""
     with pytest.raises(ValueError, match="backend"):
-        make_kv(eng, "compressed")
-    with pytest.raises(ValueError, match="not ported"):
-        make_kv(eng, "paged")
-    with pytest.raises(ValueError, match="not ported"):
-        DenseKV(eng, prefill_chunk=8)
-    with pytest.raises(ValueError, match="not ported"):
-        ContinuousBatchingServer(CFG, batch_size=1, max_seq=8,
-                                 prefill_chunk=4, device="cpu")
+        make_kv(object.__new__(ContinuousBatchingServer), "compressed")
+    eng = ContinuousBatchingServer(CFG, batch_size=2, max_seq=16,
+                                   prefill_chunk=4, device="cpu")
+    assert isinstance(eng.kv, DenseKV) and eng.kv.chunk == 4
+    paged = make_kv(eng, "paged", page_tokens=8)
+    assert paged.name == "paged" and paged.stats()["pages_total"] == 4
+    assert DenseKV(eng, prefill_chunk=8).stats() == {
+        "backend": "dense", "prefill_chunk": 8, "prefill_launches": 0,
+        "prefill_chunk_launches": 0, "prefill_tokens": 0,
+        "prefill_payload_bytes": 0, "chunked_prompts": 0}
     assert KV_BACKENDS == ("dense", "paged")
 
 
@@ -544,11 +547,16 @@ def test_loadtest_cli_quick_verifies_on_cpu(tmp_path, capsys):
     assert record["span_profile"]["spans"]["serve.request"]["spans"] == 16
 
 
-def test_loadtest_cli_refuses_paged_and_chunked():
-    with pytest.raises(ValueError, match="not ported"):
-        loadtest.main(["--quick", "--device", "cpu", "--kv", "paged"])
-    with pytest.raises(ValueError, match="not ported"):
-        loadtest.main(["--quick", "--device", "cpu", "--prefill-chunk", "4"])
+def test_loadtest_cli_refuses_paged_and_chunked(capsys):
+    """Paged and chunked serving were refused until they were ported; now
+    the quick replay runs them with a shared prefix and verifies against
+    the one-shot server."""
+    assert loadtest.main(["--quick", "--device", "cpu", "--kv", "paged",
+                          "--prefill-chunk", "4", "--prefix-len", "8",
+                          "--verify", "4"]) == 0
+    text = capsys.readouterr().out
+    assert "equivalence: OK" in text
+    assert "kv=paged chunk=4" in text and "kv[paged]" in text
 
 
 def test_serve_cli_continuous_on_cpu(tmp_path, capsys):
