@@ -30,7 +30,12 @@ D1. host->device transfers: ``sweep_transfer`` over the sizes of
     one (pageable ``cudaMemcpy``): every put round-trips exactly and lands
     one ``transfer`` event; latency and GiB/s per size (Figure 6), and
     whether the direct path shows a knee at 24 KiB; then ``HybridMover()``
-    over the same sizes, inline below 24 KiB and direct above;
+    over the same sizes, inline below 24 KiB and direct above; then the
+    1-31 KiB sizes interleaved over 8 passes (each pass in its own order,
+    the protocols in turn: inline, direct from pageable and from
+    page-locked memory), each put timed on the host and between CUDA events
+    on the device: medians, and whether a knee shows at 24 KiB on either
+    clock;
 D2. the two DMA-copy kernels (pipelined, explicit TMA) held byte for byte
     against the plain tiled copy at the reference's test shapes (f32, bf16,
     int8), at tiles whose offsets are not multiples of 16, at tiles of one
@@ -52,6 +57,17 @@ G. ``ExecGraph``'s three launch modes (``src/repro_torch/core/graphs.py``),
    line per (mode, K) with launch and completion us, bytes, nodes,
    doorbells and upload ms, and a fit of launch time over footprint per
    mode;
+
+S. the paper's instrument, command-stream capture (``core/capture.py``,
+   ``core/stream.py``): S1, ``benchmarks/bench_submission.py``'s stage split
+   (``tanh(x @ W).sum()``, 1024 wide, batch 8, fp32, one TraceSession): the
+   recorded eager run, capture+instantiate+upload, the first replay's
+   dispatch and completion, the median of 20 steady replays; S4,
+   ``ExecGraph``'s graphed chain of 10 and its multistep graph decoded node
+   by node (10 kernel nodes of the node kernel; memset, conditional and a
+   body of 2 kernels), held to phase G's footprints' node counts; S2 and
+   S3 run after
+   phase 7 of each serving path, below;
 
 then, for each serving path, gemma-2b (dense, flash attention) and
 mamba2-780m (SSD scan), both at full published width:
@@ -75,7 +91,17 @@ mamba2-780m (SSD scan), both at full published width:
    servers' graph replays (prefill, decode per step at T = 1 and 4, device
    busy over one decode replay), device time by kernel and the path's
    kernels' share of it; then one warm serve per Server (tokens/s) beside
-   the capturing serve's wall time;
+   the capturing serve's wall time and the op recorder's share of it;
+S2. decode phase 5's graphs (gemma-2b: each decode and prefill graph at
+    T = 1 and 4; mamba2-780m: each decode graph) through the driver: the
+    port's kernel nodes equal the step's counted launches, every kernel
+    node by function equals torch.profiler's records of one replay, copy
+    and fill nodes its memcpy and memset records, and the decoded nodes the
+    footprint's node count (the decoded bytes are the footprint's by
+    definition); node counts by type and the top kernels of each,
+    and gemma-2b's T=1 decode graph as Listing 1 (first 40 nodes);
+S3. each decode graph's roofline (``core/roofline.py::analyze`` on its
+    op-level stream, model FLOPs 2 N tokens) beside phase 7's replay time;
 
 then phase C, continuous batching (``ContinuousBatchingServer`` on
 ``DenseKV``: one prefill graph per prompt length, one decode graph over all
@@ -113,8 +139,13 @@ every prefill chunk and every decode launch one graph replay.  Each engine
 runs a warm replay of the schedule behind another shared prefix (it
 captures every graph and leaves no page the measured replay could share),
 then the measured one, in which no graph may be captured, then the
-schedule once more under torch.profiler, whose count of each kernel must
-equal the launches counted in the measured replay:
+schedule once more under torch.profiler.  Its counted launches must equal
+the measured replay's and, exactly, the decoded graphs' nodes of each
+kernel times the graphs' replays; the profiler may record under each graph
+launch only kernels of that graph's nodes, and its count of each kernel
+plus the records missing under the launches must equal the counted
+launches (records missing under a launch are reported as the tracer's
+loss, beside CUPTI's dropped-record count):
 
 K1. ``benchmarks/bench_kv.py``'s traffic and engine (8 requests, prompts of
     4 or 8 after a shared 24-token prefix, budgets of 5 or 9; 4 slots,
@@ -152,7 +183,9 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -173,18 +206,26 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import resolve_device  # noqa: E402
 from repro_torch.configs import ARCHS, ModelConfig  # noqa: E402
 from repro_torch.core import (H100_SXM, INLINE_THRESHOLD_DEFAULT,  # noqa: E402
-                              SPAN_EVENT, HybridMover, TraceSession,
-                              direct_put, inline_put, sweep_transfer)
+                              SPAN_EVENT, CommandStreamCapture, HybridMover,
+                              TraceSession, analyze, direct_put, inline_put,
+                              render_roofline_row, render_submission,
+                              sweep_transfer)
 from repro_torch.core.graphs import (LAUNCH_MODES, ExecGraph,  # noqa: E402
-                                     MultiStepLauncher)
-from repro_torch.kernels import _build, launches, reset_launches  # noqa: E402
-from repro_torch.kernels.dma_copy.ops import MODES, dma_copy, occupancy  # noqa: E402
+                                     MultiStepLauncher, node_cost,
+                                     record_captures)
+from repro_torch.core.stream import (decode_graph, kernel_base,  # noqa: E402
+                                     kernel_label)
+from repro_torch.kernels import (KernelCost, _build, launches,  # noqa: E402
+                                 reset_launches)
+from repro_torch.kernels.dma_copy.ops import (MODES, dma_copy,  # noqa: E402
+                                              dma_copy_cost, occupancy)
 from repro_torch.kernels.dma_copy.ref import dma_copy_tiled  # noqa: E402
-from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention, flash_attention_cost)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref  # noqa: E402
-from repro_torch.kernels.rms_norm.ops import rms_norm  # noqa: E402
+from repro_torch.kernels.rms_norm.ops import rms_norm, rms_norm_cost  # noqa: E402
 from repro_torch.kernels.rms_norm.ref import rms_norm_ref  # noqa: E402
-from repro_torch.kernels.ssd_scan.ops import ssd_scan  # noqa: E402
+from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_cost  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import mamba as mamba_block_module  # noqa: E402
@@ -203,6 +244,15 @@ GRAPH_LAW_CHAINS = (8, 32)                  # tests/test_core_graphs.py
 GRAPH_CHAINS = [1, 10, 25, 50, 100, 200, 500, 1000, 2000]
 GRAPH_PER_OP_MAX = 500
 GRAPH_REPS = 20
+# phase S: benchmarks/bench_submission.py's stage split (width, batch,
+# steady replays), ExecGraph's decoded chain, Listing 1's first nodes
+S_WIDTH, S_BATCH, S_STEADY = 1024, 8, 20
+S_CHAIN = 10
+S_REPORT_NODES = 40
+# torch.profiler's records of a graph's copy and fill nodes: a copy engine's
+# ("Memcpy DtoD (Device -> Device)", "Memset (Device)") or the driver's own
+# copy kernel ("memcpy32_post")
+DRIVER_COPY = re.compile(r"^(Memcpy|Memset) |^(?=(memcpy|memset))\w+$")
 PROFILE_MARGIN_S = 0.05
 SENTINELS, SENTINEL = 64, "spin_kernel"     # torch.cuda._sleep's kernel
 
@@ -320,6 +370,9 @@ LIN_SIZES = [1024 * i for i in range(1, 32, 3)]         # 1 KiB .. 31 KiB
 LARGE_SIZES = [32 * 1024, 128 * 1024, 512 * 1024, 2 * 2**20, 8 * 2**20,
                32 * 2**20]
 TRANSFER_ITERS, TRANSFER_WARMUP = 20, 5
+# D1's interleaved sweep over LIN_SIZES: passes, and puts a size, a pass and
+# a protocol
+TRANSFER_PASSES, TRANSFER_PASS_REPS = 8, 3
 # D2: (R, C, block_rows, dtype): tests/test_kernels.py's shapes and types,
 # then tiles whose offsets are not multiples of 16 bytes (int8 [99, 37] in
 # tiles of 3 rows, 111 bytes; bf16 [60, 7] in tiles of 4 rows, 56 bytes) and
@@ -392,23 +445,6 @@ REDESIGNED = ("flash_attention_mma_kernel", "dma_copy_explicit_kernel",
               "ssd_scan_cumsum_kernel", "ssd_scan_cb_kernel",
               "ssd_scan_state_kernel", "ssd_scan_pass_kernel",
               "ssd_scan_out_kernel", "dma_copy_pipelined_kernel")
-
-
-def kernel_label(mangled: str) -> str:
-    """``flash_attention_mma_kernel<256>`` from an Itanium-mangled name: the
-    first length-prefixed identifier ending in ``_kernel``, and its template
-    arguments (types and integers)."""
-    for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled):
-        n, ident = int(m.group(1)), m.group(2)
-        if len(ident) >= n and ident[:n].endswith("_kernel"):
-            args = re.match(r"I(.*?)EE", ident[n:])
-            if not args:
-                return ident[:n]
-            names = {"f": "float", "13__nv_bfloat16": "bf16"}
-            toks = re.findall(r"13__nv_bfloat16|Li\d+|f", args.group(1))
-            return ident[:n] + "<" + ", ".join(
-                names.get(t, t[2:]) for t in toks) + ">"
-    return mangled
 
 
 def ptxas_report(log_text: str) -> Dict[str, Dict[str, int]]:
@@ -558,11 +594,10 @@ def random_bytes(n: int, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).integers(0, 256, size=n, dtype=np.uint8)
 
 
-def direct_knee(rows: List[Dict[str, float]]) -> Dict[str, Any]:
-    """The direct path's latency step across 24 KiB (22 -> 25 KiB) against
-    the median of its other 3 KiB steps; a knee shows if it is more than 3x
-    that median and more than 1 us."""
-    by_size = {r["nbytes"]: r["latency_us"] for r in rows}
+def direct_knee(by_size: Dict[int, float]) -> Dict[str, Any]:
+    """A latency curve's step across 24 KiB (22 -> 25 KiB), in us by size,
+    against the median of its other 3 KiB steps; a knee shows if it is more
+    than 3x that median and more than 1 us."""
     lat = [by_size[n] for n in LIN_SIZES]
     steps = [b - a for a, b in zip(lat, lat[1:])]
     at = steps.pop(next(i for i, n in enumerate(LIN_SIZES)
@@ -618,12 +653,59 @@ def transfers(card: str, device: torch.device) -> None:
         raise AssertionError(f"{puts} puts landed {events} transfer events")
     if device.type == "cuda" and launches["inline_put"] < 1:
         raise AssertionError("the inline materializer was not launched")
-    knee = direct_knee(sweeps["direct"])
+    knee = direct_knee({r["nbytes"]: r["latency_us"]
+                        for r in sweeps["direct"]})
     log(f"{card} | direct latency step 22 -> 25 KiB {knee['step_us']:.3f} us "
         f"against a median 3 KiB step of {knee['median_step_us']:.3f} us: "
         f"knee at 24 KiB {'shows' if knee['knee'] else 'does not show'}")
     log(f"D1: {puts} puts, {events} transfer events, {launches['inline_put']}"
         f" inline graph replays; HybridMover {stats}")
+
+
+def transfer_passes(card: str, device: torch.device) -> None:
+    """D1's interleaved sweep: TRANSFER_PASSES passes over the 1-31 KiB
+    sizes, each pass in its own order, each size put TRANSFER_PASS_REPS
+    times a pass by each protocol in turn (inline, direct from pageable
+    memory, direct from page-locked memory), once timed on the host
+    (put to completion) and once on the device (CUDA events around the
+    dispatch, the stream held while it is queued).  Medians, and whether a
+    knee shows at 24 KiB on either clock."""
+    protocols = {
+        "inline": lambda x, dt: inline_put(x, device, device_time=dt),
+        "direct": lambda x, dt: direct_put(x, device, device_time=dt),
+        "direct_pinned": lambda x, dt: direct_put(x, device, pinned=True,
+                                                  device_time=dt)}
+    host: Dict[Tuple[str, int], List[float]] = {
+        (m, n): [] for m in protocols for n in LIN_SIZES}
+    dev: Dict[Tuple[str, int], List[float]] = {k: [] for k in host}
+    payloads = {n: random_bytes(n, seed=3 * n) for n in LIN_SIZES}
+    for n, x in payloads.items():                # stage, warm and check each
+        for m, put in protocols.items():
+            if not torch.equal(put(x, True)[0].cpu(), torch.from_numpy(x)):
+                raise AssertionError(f"{m} put of {n} B did not round-trip")
+    for p in range(TRANSFER_PASSES):
+        rng = np.random.default_rng(p)
+        for n in rng.permutation(LIN_SIZES):
+            for _ in range(TRANSFER_PASS_REPS):
+                for m in rng.permutation(list(protocols)):
+                    host[m, n].append(protocols[m](payloads[n], False)[1]
+                                      .complete_s)
+                    dev[m, n].append(protocols[m](payloads[n], True)[1]
+                                     .device_s)
+    med = {k: (float(np.median(host[k])) * 1e6, float(np.median(dev[k])) * 1e6)
+           for k in host}
+    for n in LIN_SIZES:
+        log(f"{card} | D1 interleaved {n:>6d} B ({TRANSFER_PASSES} passes x "
+            f"{TRANSFER_PASS_REPS}): " + "; ".join(
+                f"{m} host {med[m, n][0]:8.3f} us device {med[m, n][1]:8.3f} us"
+                for m in protocols))
+    for m in protocols:
+        for clock, i in (("host", 0), ("device", 1)):
+            knee = direct_knee({n: med[m, n][i] for n in LIN_SIZES})
+            log(f"{card} | D1 interleaved {m} {clock}: step 22 -> 25 KiB "
+                f"{knee['step_us']:.3f} us against a median 3 KiB step of "
+                f"{knee['median_step_us']:.3f} us: knee at 24 KiB "
+                f"{'shows' if knee['knee'] else 'does not show'}")
 
 
 def copy_input(R: int, C: int, dtype: torch.dtype, device: torch.device,
@@ -664,7 +746,8 @@ def copy_path(card: str, device: torch.device) -> List[Dict[str, Any]]:
     kernels' entries at the path shape."""
     R, C = DMA_SHAPE
     x = copy_input(R, C, DMA_DTYPE, device, seed=1)
-    nbytes = 2 * x.numel() * x.element_size()
+    cost = dma_copy_cost(x)
+    nbytes = cost.operand_bytes + cost.result_bytes
     bracket: Dict[Tuple[str, int], float] = {}
     reset_launches()
     with TraceSession("dma.copy") as sess:
@@ -686,7 +769,7 @@ def copy_path(card: str, device: torch.device) -> List[Dict[str, Any]]:
     if any(c != want for c in counts.values()):
         raise AssertionError(f"dma_copy launches {counts} in the path, "
                              f"expected {want} each")
-    bound = roofline(nbytes, 0)
+    bound = roofline(cost)
     library_ms = device_ms(lambda: torch.empty_like(x).copy_(x))
     prof, occ = {}, {}
     for blk in DMA_TILES:
@@ -867,7 +950,7 @@ def graph_entry(card: str, device: torch.device,
          "ms": device_ms(node),
          "plain_ms": device_ms(lambda: g.x.mul_(g.scales[0])),
          "call_ms": time_ms(node, reps=100),
-         **roofline(2 * GRAPH_WIDTH * 4 + 8, 0),
+         **roofline(node_cost(g.x, g.scales, 0, 0, 0)),
          "library_ms": device_ms(lambda: torch.mul(g.x, g.scales[0], out=y)),
          "shape": f"width={GRAPH_WIDTH} f32, one node",
          "launches_by_path": {"graphs": counts},
@@ -878,6 +961,194 @@ def graph_entry(card: str, device: torch.device,
         f"{e['library_ms']:.5f} ms, max|err| {err:.3e}, launches in phase G "
         f"{e['launches']}")
     return e
+
+
+# ---------------------------------------------------------------- phase S
+def stage_split(card: str, device: torch.device) -> None:
+    """S1: ``benchmarks/bench_submission.py``'s stage split,
+    ``tanh(x @ W).sum()`` on one TraceSession: the recorded eager run, the
+    capture with instantiate and upload, the first replay's dispatch and
+    completion, and the median of the steady replays (each a doorbell)."""
+    with TraceSession("stage_split") as sess:
+        g = torch.Generator(device=device).manual_seed(0)
+        W = torch.randn(S_WIDTH, S_WIDTH, generator=g,
+                        device=device) / S_WIDTH ** 0.5
+        x = torch.randn(S_BATCH, S_WIDTH, generator=g, device=device)
+
+        def f(x: torch.Tensor) -> torch.Tensor:
+            return torch.tanh(x @ W).sum()
+
+        cs = sess.capture.lower_and_compile("stage_split", f, args=(x,))
+        t2 = time.perf_counter()
+        out = cs.step()
+        t3 = time.perf_counter()
+        torch.cuda.synchronize(device)
+        t4 = time.perf_counter()
+        torch.testing.assert_close(out, f(x), rtol=1e-5, atol=1e-4)
+        steady = sess.wrap(cs.step, "stage_steady_call", block=True)
+        times = []
+        for _ in range(S_STEADY):
+            t = time.perf_counter()
+            steady()
+            times.append(time.perf_counter() - t)
+        kinds = sess.summary()["by_kind"]
+    if (kinds.get("compile"), kinds.get("dispatch")) != (1, S_STEADY):
+        raise AssertionError(f"stage split: events {kinds}, expected one "
+                             f"compile and {S_STEADY} dispatches")
+    stages = {"trace (recorded eager run)": cs.lower_time_s,
+              "capture+instantiate+upload": cs.compile_time_s,
+              "first replay, dispatch": t3 - t2,
+              "first replay, completion": t4 - t3,
+              f"steady replay, median of {S_STEADY}": float(np.median(times))}
+    for stage, sec in stages.items():
+        log(f"{card} | stage_split W={S_WIDTH} B={S_BATCH} fp32 {stage}: "
+            f"{sec * 1e6:.1f} us")
+    log(f"stage_split graph: {cs.graph_stream.counts_by_opcode()}, "
+        f"{cs.command_bytes} B; op-level {cs.stream.counts_by_opcode()}, "
+        f"{cs.flops} FLOPs")
+
+
+def decoded_kernels(graph) -> "collections.Counter[str]":
+    """Kernel nodes of a decoded graph by function (``kernel_base``)."""
+    return collections.Counter(kernel_base(e.op_path) for e in graph.entries
+                               if e.opcode == "kernel")
+
+
+def held_to_graph(label: str, step, cs) -> Dict[str, int]:
+    """S2's checks of one decoded graph: its kernel nodes of the port's
+    kernels equal the step's counted launches; all its kernel nodes, by
+    function, equal torch.profiler's kernel records over one replay, and
+    its copy and fill nodes the profiler's memcpy and memset records; the
+    nodes decoded (bodies walked) equal the footprint's node count.  The
+    decoded stream's bytes are the footprint's by definition.  Returns the
+    node counts by type."""
+    nodes = [e for e in cs.graph_stream.entries if e.opcode == "kernel"]
+    for name, syms in KERNEL_SYMBOLS.items():
+        n = step.launches.get(name, 0)
+        for sym in syms:
+            seen = sum(of_symbol(sym, e.op_path) for e in nodes)
+            if seen > n or (seen < n and sym not in MULTI_CHUNK_ONLY):
+                raise AssertionError(f"{label}: {seen} {sym} nodes decoded "
+                                     f"for {n} counted {name} launches")
+    rows, _ = _profile(step, warmup=False)
+    # a copy or fill node runs on a copy engine (a "Memcpy"/"Memset"
+    # record) or as one of the driver's own kernels (memcpy32_post)
+    copies = collections.Counter()
+    profiled = collections.Counter()
+    full = collections.Counter()
+    for e in rows:
+        m = DRIVER_COPY.match(e.key)
+        if m:
+            copies[(m.group(1) or m.group(2)).lower(), e.key] += e.count
+        else:
+            profiled[kernel_base(e.key)] += e.count
+            full[e.key] += e.count
+    decoded = decoded_kernels(cs.graph_stream)
+    if decoded != profiled:
+        raise AssertionError(f"{label}: decoded kernel nodes and the "
+                             f"profiler's records differ: decoded only "
+                             f"{dict(decoded - profiled)}, profiled only "
+                             f"{dict(profiled - decoded)}")
+    counts = cs.graph_stream.counts_by_opcode()
+    for kind in ("memcpy", "memset"):
+        seen = sum(n for (k, _), n in copies.items() if k == kind)
+        if counts.get(kind, 0) != seen:
+            raise AssertionError(f"{label}: {counts.get(kind, 0)} {kind} "
+                                 f"nodes decoded, the profiler recorded "
+                                 f"{dict(copies)}")
+    if cs.n_ops != step.footprint()[1]:
+        raise AssertionError(f"{label}: {cs.n_ops} nodes decoded, footprint "
+                             f"{step.footprint()}")
+    same_names = full == collections.Counter(e.op_path for e in nodes)
+    sizes = collections.Counter(e.result_bytes for e in cs.graph_stream.entries
+                                if e.opcode in ("memcpy", "memset"))
+    log(f"{label}: {cs.n_ops} nodes {counts}, {cs.command_bytes} B; kernel "
+        f"nodes equal the profiler's {sum(profiled.values())} records by "
+        f"function ({'and by full name' if same_names else 'not all by full name'}) "
+        f"and the counted launches {dict(step.launches)}; copy and fill nodes "
+        f"(bytes: count) {dict(sizes)} equal the profiler's {dict(copies)}; "
+        f"top kernels "
+        + ", ".join(f"{k} x{n}" for k, n in collections.Counter(
+            e.label for e in nodes).most_common(5)))
+    return counts
+
+
+def decode_serving_graphs(path: ServePath, cfg: ModelConfig, params,
+                          runs: Dict[int, Dict[str, Any]],
+                          t: Dict[str, float], card: str) -> None:
+    """S2 and S3 on phase 5's servers: decode each decode graph (and, on the
+    dense path, each prefill graph), hold it to the launches, the profiler
+    and the footprint; print gemma-2b's T=1 decode graph as Listing 1; then
+    each decode graph's roofline beside its measured replay (phase 7)."""
+    cap = CommandStreamCapture()
+    n_params = sum(x.numel() for x in _leaves(params))
+    for T, run in runs.items():
+        srv = run["server"]
+        for label, step in srv.graphs().items():
+            if not (label.startswith("decode") or path is GEMMA):
+                continue
+            name = f"{cfg.name} T={T} {label}"
+            cs = cap.capture_compiled(name, step)
+            held_to_graph(name, step, cs)
+            if not label.startswith("decode"):
+                continue
+            if path is GEMMA and T == 1:
+                print(render_submission(cs, srv.tracker,
+                                        max_entries=S_REPORT_NODES),
+                      flush=True)
+            B = len(path.prompt_lens)
+            rep = analyze(cs, chips=1, model_flops_total=2 * n_params * B * T,
+                          name=name)
+            ms = t[f"replay_decode_ms_per_step_T{T}"] * T
+            bound_ms = rep.step_time_s * 1e3
+            eager_ms = t["decode_ms_per_step"] * T
+            log(f"{card} | {name} recorded warm-up {step.record_s * 1e3:.1f} "
+                f"ms against {eager_ms:.1f} ms eager: the recorder costs "
+                f"{(step.record_s * 1e3 - eager_ms) / cs.stream.n_ops * 1e3:.1f}"
+                f" us an op-level entry ({cs.stream.n_ops} entries)")
+            log(f"{card} | roofline {name}: compute {rep.compute_s * 1e3:.4f}"
+                f" ms ({rep.flops_per_device / 1e9:.3f} GFLOP), memory "
+                f"{rep.memory_s * 1e3:.4f} ms ({rep.hbm_bytes_per_device / 1e9:.4f}"
+                f" GB), bound {bound_ms:.4f} ms ({rep.bottleneck}); measured "
+                f"replay {ms:.4f} ms: {bound_ms / ms:.1%} of the roofline; "
+                f"model/stream FLOPs {rep.model_flops_ratio:.3f}, "
+                f"roofline_fraction {rep.roofline_fraction:.4f}")
+            print(render_roofline_row(rep), flush=True)
+
+
+def decode_exec_graphs(card: str, device: torch.device) -> None:
+    """S4: ``ExecGraph``'s graphed chain of S_CHAIN nodes and its multistep
+    graph, decoded and held to phase G's footprints' node counts."""
+    g = ExecGraph(S_CHAIN, GRAPH_WIDTH, device)
+    graphed = g.decode("graphed")
+    names = decoded_kernels(graphed)
+    if (graphed.counts_by_opcode() != {"kernel": S_CHAIN} or set(names) != {
+            "(anonymous namespace)::exec_graph_node_kernel"}):
+        raise AssertionError(f"graphed K={S_CHAIN}: decoded "
+                             f"{graphed.counts_by_opcode()}, {dict(names)}")
+    multistep = g.decode("multistep")
+    ops = [e.opcode for e in multistep.entries]
+    if ops != ["memset", "conditional", "kernel", "kernel"] or not (
+            multistep.unknown_trip_counts):
+        raise AssertionError(f"multistep: decoded {ops}, unknown trip counts "
+                             f"{multistep.unknown_trip_counts}")
+    for mode, st in (("graphed", graphed), ("multistep", multistep)):
+        if st.n_ops != g.command_footprint(mode)[1]:
+            raise AssertionError(f"{mode}: {st.n_ops} nodes decoded; phase "
+                                 f"G's footprint {g.command_footprint(mode)}")
+        log(f"ExecGraph {mode} K={S_CHAIN} decoded: {st.counts_by_opcode()}, "
+            f"unknown trip counts {st.unknown_trip_counts}; {st.n_ops} nodes "
+            f"as phase G's footprint ({st.text_bytes} B, its bytes by "
+            f"definition)")
+    for e in multistep.entries:
+        log("  " + e.describe())
+
+
+def submission_path(card: str, device: torch.device) -> None:
+    log("phase S1: bench_submission's stage split")
+    stage_split(card, device)
+    log("phase S4: ExecGraph's graphed and multistep graphs decoded")
+    decode_exec_graphs(card, device)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1071,23 +1342,18 @@ def compare_routes(path: ServePath, cfg: ModelConfig, params,
 
 
 # ---------------------------------------------------------------- phase 7
-def _profile(fn: Callable[[], Any], reps: int = 1, warmup: bool = True):
-    """Kernel rows of torch.profiler over ``reps`` calls of ``fn`` (after one
-    warm-up call, unless ``warmup`` is false), and the host wall time of the
-    window in us.
+def _window(fn: Callable[[], Any], reps: int = 1):
+    """torch.profiler over ``reps`` calls of ``fn``, and the host wall time
+    of the calls in us.
 
-    Every window opens with ``SENTINELS`` spin kernels, left out of the
-    rows: the tracer can drop the first kernel records of a window (none
-    early in a run; later, the first norm of a graph that begins with the
-    embedding and its scale, in every window, and 9 of 20 timed RMSNorm
-    calls), and the sentinels take that loss.  Raises unless a sentinel is
-    left and the profiler's count of every counted kernel launched in the
-    window equals the launches counted there (``held_to_counts``)."""
+    Every window opens with ``SENTINELS`` spin kernels: the tracer drops the
+    first kernel records of a window, none early in a process and more the
+    more records the process has traced (``scripts/profiler_record_loss.py``;
+    later in this script, the first norm of a graph that begins with the
+    embedding and its scale, in every window), and CUPTI's dropped-record
+    count does not see it.  The sentinels take that loss."""
     from torch.profiler import ProfilerActivity, profile
-    if warmup:
-        fn()
     torch.cuda.synchronize()
-    before = collections.Counter(launches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         # margins inside the trace window, outside the timed one: the tracer
         # drops device records whose converted timestamps fall outside it
@@ -1101,6 +1367,19 @@ def _profile(fn: Callable[[], Any], reps: int = 1, warmup: bool = True):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
         time.sleep(PROFILE_MARGIN_S)
+    return prof, wall_us
+
+
+def _profile(fn: Callable[[], Any], reps: int = 1, warmup: bool = True):
+    """Kernel rows of torch.profiler over ``reps`` calls of ``fn``
+    (``_window``), the sentinels left out, and the host wall time in us.
+    Raises unless a sentinel is left and the profiler's count of every
+    counted kernel launched in the window equals the launches counted
+    there (``held_to_counts``)."""
+    if warmup:
+        fn()
+    before = collections.Counter(launches)
+    prof, wall_us = _window(fn, reps)
     counted = collections.Counter(launches)
     counted.subtract(before)
     rows = [e for e in prof.key_averages()
@@ -1229,6 +1508,10 @@ def time_path(path: ServePath, cfg: ModelConfig, params,
         out[f"warm_serve_wall_s_T{T}"] = m["wall_s"]
         out[f"capture_serve_wall_s_T{T}"] = run["serves"][0]["metrics"][
             "wall_s"]
+        # the capturing serve ran inside record_captures(): each graph's
+        # eager warm-up under the op recorder (phase S2-S3)
+        out[f"capture_record_s_T{T}"] = sum(
+            step.record_s for step in run["server"].graphs().values())
     return out
 
 
@@ -1244,11 +1527,14 @@ def drive_path(path: ServePath, card: str, device: torch.device
         f"{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} GB "
         f"({cfg.param_dtype}, fp32 where the reference keeps fp32)")
     log(f"phase 5: {path.arch} Server.serve, the main path")
-    runs = serve_main_path(path, cfg, params, device)
+    with record_captures():                     # for phase S2-S3
+        runs = serve_main_path(path, cfg, params, device)
     log(f"phase 6: {path.arch} kernel route against the plain route")
     compare_routes(path, cfg, params, device)
     log(f"phase 7: {path.arch} timings")
     t = time_path(path, cfg, params, device, runs)
+    log(f"phase S2-S3: {path.arch} serving graphs decoded, their roofline")
+    decode_serving_graphs(path, cfg, params, runs, t, card)
     B = len(path.prompt_lens)
     log(f"{card} | {cfg.name} B={B} prompts {path.prompt_lens} new "
         f"{NEW_TOKENS}: eager prefill {t['prefill_ms']:.3f} ms, decode "
@@ -1263,7 +1549,9 @@ def drive_path(path: ServePath, card: str, device: torch.device
         f"{t['warm_tokens_per_s_T4']:.1f} tokens/s (wall "
         f"{t['warm_serve_wall_s_T4']:.3f} s, T=4); capturing serve wall "
         f"{t['capture_serve_wall_s_T1']:.3f} s (T=1), "
-        f"{t['capture_serve_wall_s_T4']:.3f} s (T=4); host time to enqueue "
+        f"{t['capture_serve_wall_s_T4']:.3f} s (T=4), of which the op "
+        f"recorder's warm-ups {t['capture_record_s_T1']:.3f} s (T=1), "
+        f"{t['capture_record_s_T4']:.3f} s (T=4); host time to enqueue "
         f"a replay: prefill {t['replay_enqueue_us_prefill_T1']:.1f} us, "
         f"decode median {t['replay_enqueue_us_decode_T1']:.1f} us (T=1), "
         f"{t['replay_enqueue_us_decode_T4']:.1f} us (T=4)")
@@ -1679,30 +1967,132 @@ def measured_replay(eng: ContinuousBatchingServer, spec: Dict[str, Any],
     return tickets, m, counts, kv, ev0, db0
 
 
+def cupti_dropped() -> Optional[int]:
+    """CUPTI's count of the activity records it dropped for want of buffer
+    space since the last read, which resets it: read from the libcupti that
+    torch.profiler uses in this process; None where none is loaded."""
+    with open("/proc/self/maps") as maps:
+        paths = sorted({line.split()[-1] for line in maps if "libcupti" in line})
+    if not paths:
+        return None
+    n = ctypes.c_size_t()
+    err = ctypes.CDLL(paths[0]).cuptiActivityGetNumDroppedRecords(
+        None, ctypes.c_uint32(0), ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuptiActivityGetNumDroppedRecords: error {err}")
+    return n.value
+
+
+def _logged_replay(replay: Callable[[], None], key: str, order: List[str]
+                   ) -> None:
+    order.append(key)
+    replay()
+
+
+@contextlib.contextmanager
+def replays_logged(steps: Dict[str, Any], order: List[str]) -> Iterator[None]:
+    """Each replay of ``steps``' graphs appended to ``order`` by key, in
+    launch order."""
+    graphs = [(key, step.graph) for key, step in steps.items()]
+    for key, g in graphs:
+        g.replay = functools.partial(_logged_replay, g.replay, key, order)
+    try:
+        yield
+    finally:
+        for _, g in graphs:
+            del g.replay
+
+
 def held_to_profiler(eng: ContinuousBatchingServer, spec: Dict[str, Any],
                      label: str, measured: Optional[Dict[str, int]] = None
                      ) -> Tuple[Dict[str, int], Dict[str, Any]]:
     """``spec``'s schedule once more (behind a third prefix) in one
-    torch.profiler window: the profiler's count of each kernel equals the
-    launches counted in the window, and these equal ``measured`` (the
-    measured replay's, for the same schedule) when given.  Returns the
-    counted launches and the profiler's counts."""
+    torch.profiler window.
+
+    Exact, without the profiler: no graph is captured in the window, and the
+    launches counted there equal, kernel by kernel, the nodes of the decoded
+    graphs times the graphs' replays, and ``measured`` (the measured
+    replay's, for the same schedule) when given.  The profiler then
+    witnesses every replay: under each graph launch (its correlation id) it
+    may record only kernels of that graph's nodes, each at most as often as
+    the graph holds it, and its count of each counted kernel plus the
+    records missing under the launches must equal the counted launches.  A
+    launch missing records is the tracer's loss (a replay runs every node of
+    its graph): it is reported with CUPTI's dropped-record count over the
+    window.  Returns the counted launches and the profiler's counts."""
+    steps = eng.graphs()
+    nodes = {key: decoded_kernels(decode_graph(step.graph))
+             for key, step in steps.items()}
+    before = graph_objects(eng)
+    order: List[str] = []
     fresh_cursor(eng)
     reset_launches()
-    rows, _ = _profile(lambda: replay(eng, prefixed(
-        spec, eng.cfg.vocab_size, 1002), realtime=False), warmup=False)
+    cupti_dropped()
+    with replays_logged(steps, order):
+        prof, _ = _window(lambda: replay(eng, prefixed(
+            spec, eng.cfg.vocab_size, 1002), realtime=False))
+    dropped = cupti_dropped()
     counts = dict(launches)
+    captured_nothing(eng, before, label)
     if measured is not None and counts != measured:
         raise AssertionError(f"{label}: the profiled replay counted "
                              f"{counts}, the measured one {measured}")
-    prof = profiled_counts(rows, C_KERNELS[GEMMA.arch])
-    for name, by_sym in prof.items():
-        if any(c != counts.get(name, 0) for c in by_sym.values()):
-            raise AssertionError(f"{label}: {counts.get(name, 0)} counted "
-                                 f"{name} launches, the profiler saw {by_sym}")
+    replays = collections.Counter(order)
+    for name in C_KERNELS[GEMMA.arch]:
+        for sym in KERNEL_SYMBOLS[name]:
+            want = sum(n * sum(c for k, c in nodes[key].items()
+                               if of_symbol(sym, k))
+                       for key, n in replays.items())
+            if counts.get(name, 0) != want:
+                raise AssertionError(
+                    f"{label}: {counts.get(name, 0)} counted {name} "
+                    f"launches, {want} {sym} nodes in the graphs replayed "
+                    f"({dict(replays)})")
     if not counts.get("rms_norm"):
         raise AssertionError(f"{label}: no rms_norm launch counted")
-    return counts, prof
+
+    events = list(prof.profiler.kineto_results.events())
+    graph_launches = [e.correlation_id() for e in sorted(
+        (e for e in events if e.name() == "cudaGraphLaunch"),
+        key=lambda e: e.start_ns())]
+    if len(graph_launches) != len(order):
+        raise AssertionError(f"{label}: {len(order)} replays, the profiler "
+                             f"recorded {len(graph_launches)} graph launches")
+    under: Dict[int, "collections.Counter[str]"] = collections.defaultdict(
+        collections.Counter)
+    kernels = [e for e in events
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not DRIVER_COPY.match(e.name())]
+    for e in kernels:
+        under[e.correlation_id()][kernel_base(e.name())] += 1
+    lost: "collections.Counter[str]" = collections.Counter()
+    short = []
+    for i, (key, corr) in enumerate(zip(order, graph_launches)):
+        got = under[corr]
+        if got - nodes[key]:
+            raise AssertionError(f"{label}: replay {i} of {key} recorded "
+                                 f"{dict(got - nodes[key])} beyond its "
+                                 f"graph's nodes")
+        if nodes[key] - got:
+            lost += nodes[key] - got
+            short.append(i)
+    prof_counts = {name: {sym: sum(of_symbol(sym, e.name()) for e in kernels)
+                          for sym in KERNEL_SYMBOLS[name]}
+                   for name in C_KERNELS[GEMMA.arch]}
+    for name, by_sym in prof_counts.items():
+        for sym, seen in by_sym.items():
+            missing = sum(n for k, n in lost.items() if of_symbol(sym, k))
+            if seen + missing != counts.get(name, 0):
+                raise AssertionError(
+                    f"{label}: {counts.get(name, 0)} counted {name} launches,"
+                    f" the profiler saw {seen} {sym} and lost {missing} under"
+                    f" the graph launches")
+    if short or dropped:
+        log(f"{label}: tracer loss: {sum(lost.values())} kernel records "
+            f"missing under {len(short)} of {len(order)} graph launches "
+            f"(replays {short[:8]}), {dict(lost.most_common(4))}; CUPTI's "
+            f"dropped-record count over the window {dropped}")
+    return counts, prof_counts
 
 
 def held_to_tokens(cfg: ModelConfig, params, tickets,
@@ -1950,9 +2340,12 @@ def kv_path(card: str, device: torch.device) -> Dict[str, Dict[str, int]]:
 
 
 # ---------------------------------------------------------------- kernels
-def roofline(nbytes: int, flops: int) -> Dict[str, Any]:
-    """Bound of bf16 work on one H100 SXM (NVIDIA's published peaks)."""
-    byte_s, flop_s = nbytes / H100_SXM.hbm_bw, flops / H100_SXM.peak_flops
+def roofline(cost: KernelCost) -> Dict[str, Any]:
+    """Bound of bf16 work on one H100 SXM (NVIDIA's published peaks): the
+    kernel's bytes (each input read once, each output written once) and
+    operations, from its wrapper's cost formula."""
+    byte_s = (cost.operand_bytes + cost.result_bytes) / H100_SXM.hbm_bw
+    flop_s = cost.flops / H100_SXM.peak_flops
     return {"bound_ms": max(byte_s, flop_s) * 1e3,
             "bound_by": "bytes" if byte_s >= flop_s else "operations"}
 
@@ -1962,7 +2355,6 @@ def rms_entry(device: torch.device) -> Dict[str, Any]:
         torch.bfloat16
     x, s = rms_inputs(rows, D, dtype, device, seed=1)
     err = max_err(rms_norm(x, s), rms_norm_ref(x, s))
-    item = x.element_size()
     library_ms = None
     if hasattr(F, "rms_norm"):
         w = (1.0 + s.float()).to(dtype)
@@ -1974,7 +2366,7 @@ def rms_entry(device: torch.device) -> Dict[str, Any]:
             "ms": device_ms(lambda: rms_norm(x, s)),
             "plain_ms": device_ms(lambda: rms_norm_ref(x, s)),
             "call_ms": time_ms(lambda: rms_norm(x, s), reps=100),
-            **roofline(2 * rows * D * item + D * item, 0),
+            **roofline(rms_norm_cost(x, s)),
             "library_ms": library_ms,
             "shape": f"rows={rows} D={D} bf16 (gemma-2b prefill)"}
 
@@ -1986,9 +2378,6 @@ def flash_entry(device: torch.device) -> Dict[str, Any]:
     dtype = torch.bfloat16
     q, k, v = flash_inputs(B, S, H, Hkv, hd, dtype, device, seed=1)
     err = max_err(flash_attention(q, k, v), flash_attention_ref(q, k, v))
-    item = q.element_size()
-    nbytes = (2 * B * S * H * hd + 2 * B * S * Hkv * hd) * item
-    flops = 4 * B * H * hd * S * (S + 1) // 2     # causal pairs only
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True))
@@ -1999,7 +2388,7 @@ def flash_entry(device: torch.device) -> Dict[str, Any]:
             "ms": device_ms(lambda: flash_attention(q, k, v)),
             "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v)),
             "call_ms": time_ms(lambda: flash_attention(q, k, v), reps=50),
-            **roofline(nbytes, flops),
+            **roofline(flash_attention_cost(q, k, v)),
             "library_ms": library_ms,
             "shape": f"B={B} S={S} H={H} Hkv={Hkv} hd={hd} causal bf16"}
 
@@ -2016,13 +2405,12 @@ def flash_long(card: str, device: torch.device, S: int = 4096
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
     err = max_err(out, ref)
     del out, ref
-    nbytes = (2 * B * S * H * hd + 2 * B * S * Hkv * hd) * q.element_size()
-    flops = 4 * B * H * hd * S * (S + 1) // 2
+    flops = flash_attention_cost(q, k, v).flops
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa_ms = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True))
     ms = device_ms(lambda: flash_attention(q, k, v))
-    bound = roofline(nbytes, flops)
+    bound = roofline(flash_attention_cost(q, k, v))
     log(f"{card} | flash_attention long B={B} S={S} H={H} Hkv={Hkv} hd={hd} "
         f"causal bf16: kernel {ms:.5f} ms, scaled_dot_product_attention "
         f"{sdpa_ms:.5f} ms, bound {bound['bound_ms']:.5f} ms "
@@ -2041,15 +2429,6 @@ def ssd_entry(device: torch.device) -> Dict[str, Any]:
     dtype = torch.bfloat16
     args = ssd_inputs(B, S, H, P, N, dtype, device, seed=1)
     err = max_err(ssd_scan(*args, chunk=Q)[0], ssd_chunked(*args, chunk=Q)[0])
-    item = args[0].element_size()
-    # x read, y written; dt, A, B and C read
-    nbytes = 2 * B * S * H * P * item + (B * S * H + H) * 4 + 2 * B * S * N * item
-    # the products this run needs: per (b, chunk) C B^T over the causal pairs,
-    # once for all heads; per head the intra term over the causal pairs, the
-    # inter term C h^T of every chunk after the first and the state of
-    # every chunk before the last
-    pairs, n = Q * (Q + 1) // 2, S // Q
-    flops = 2 * B * (n * (pairs * N + H * pairs * P) + 2 * (n - 1) * H * Q * N * P)
     # the call's five kernels, by step
     steps = {}
     for key, ms in device_ms_by_kernel(lambda: ssd_scan(*args, chunk=Q)).items():
@@ -2063,7 +2442,7 @@ def ssd_entry(device: torch.device) -> Dict[str, Any]:
             "steps_ms": steps,
             "plain_ms": device_ms(lambda: ssd_chunked(*args, chunk=Q), reps=5),
             "call_ms": time_ms(lambda: ssd_scan(*args, chunk=Q), reps=20),
-            **roofline(nbytes, flops),
+            **roofline(ssd_scan_cost(*args, chunk=Q)),
             "library_ms": None,    # no single PyTorch call computes SSD
             "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={Q} bf16"}
 
@@ -2086,12 +2465,15 @@ def main() -> int:
     check_kernels(device)
     log("phase D1: host->device transfers, inline vs direct")
     transfers(card, device)
+    transfer_passes(card, device)
     log("phase D2: the DMA-copy kernels against the plain tiled copy")
     copy_checks(device)
     dma_kernels = copy_path(card, device)
 
     log("phase G: ExecGraph's launch modes and the command-footprint law")
     graph_counts = exec_graphs(card, device)
+
+    submission_path(card, device)
 
     counts = {path.arch: drive_path(path, card, device) for path in PATHS}
 

@@ -62,6 +62,8 @@ class TransferRecord:
     submit_s: float            # per-call dispatch cost
     complete_s: float          # to completion
     bandwidth_gib_s: float
+    device_s: Optional[float] = None   # on the card, between CUDA events
+                                       # around the dispatch; when asked
 
 
 class _InlineMaterializer:
@@ -166,16 +168,39 @@ def _emit_transfer(session: Optional[TraceSession], rec: TransferRecord,
 
 
 def _record(mode: str, nbytes: int, build_s: float, t1: float, t2: float,
-            t3: float) -> TransferRecord:
+            t3: float, events: Optional[Tuple[Any, Any]] = None
+            ) -> TransferRecord:
     return TransferRecord(
         mode=mode, nbytes=nbytes, build_s=build_s, submit_s=t2 - t1,
         complete_s=t3 - t1,
-        bandwidth_gib_s=nbytes / max(t3 - t1, 1e-12) / 2**30)
+        bandwidth_gib_s=nbytes / max(t3 - t1, 1e-12) / 2**30,
+        device_s=(None if events is None
+                  else events[0].elapsed_time(events[1]) / 1e3))
+
+
+# cycles the stream is held before a device-timed put (~100 us at the
+# H100's clocks), longer than the host takes to queue one
+_HOLD_CYCLES = 200_000
+
+
+def _events(dev: torch.device, device_time: bool) -> Optional[Tuple[Any, Any]]:
+    """A pair of timing events on ``dev``'s stream, when asked on a card.
+
+    The stream is first held by a spin kernel, so that the put is queued
+    before the card reaches the first event: the events then time the
+    put's device work, without the host's time to submit it (the record's
+    host times include the hold)."""
+    if not device_time or dev.type != "cuda":
+        return None
+    torch.cuda._sleep(_HOLD_CYCLES)
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
 
 
 def inline_put(x: np.ndarray, device: Optional[Any] = None,
                _cache: bool = True,
                session: Optional[TraceSession] = None,
+               device_time: bool = False,
                ) -> Tuple[torch.Tensor, TransferRecord]:
     """Move ``x`` to the device via the *inline* protocol.
 
@@ -184,6 +209,8 @@ def inline_put(x: np.ndarray, device: Optional[Any] = None,
     travels inside the command stream and the compute path writes it out.
     ``device=None`` means ``cuda``.  The returned tensor is the cached
     materializer's output buffer (see :class:`_InlineMaterializer`).
+    ``device_time`` also times the dispatch between CUDA events
+    (``TransferRecord.device_s``; see :func:`_events`).
     """
     x = np.asarray(x)
     dev = _canonical(device)
@@ -197,30 +224,50 @@ def inline_put(x: np.ndarray, device: Optional[Any] = None,
         build_s = time.perf_counter() - t0
         if _cache:
             _inline_cache.put(key, staged)
+    events = _events(dev, device_time)
     t1 = time.perf_counter()
+    if events:
+        events[0].record()
     staged.dispatch()
+    if events:
+        events[1].record()
     t2 = time.perf_counter()
     wait(dev)
     t3 = time.perf_counter()
-    rec = _record("inline", x.nbytes, build_s, t1, t2, t3)
+    rec = _record("inline", x.nbytes, build_s, t1, t2, t3, events)
     _emit_transfer(session, rec, t=t1)
     return _typed(staged.out, x), rec
 
 
 def direct_put(x: np.ndarray, device: Optional[Any] = None,
                session: Optional[TraceSession] = None,
+               pinned: bool = False, device_time: bool = False,
                ) -> Tuple[torch.Tensor, TransferRecord]:
     """Move ``x`` to the device via the *direct* protocol: a host→device
-    copy from pageable memory.  ``device=None`` means ``cuda``."""
+    copy from pageable memory, or with ``pinned`` from a page-locked copy
+    of it (made before the clock starts, as ``build_s``; the copy is then
+    asynchronous).  ``device=None`` means ``cuda``.  ``device_time`` also
+    times the copy between CUDA events (``TransferRecord.device_s``; see
+    :func:`_events`)."""
     x = np.asarray(x)
     dev = _canonical(device)
+    t0 = time.perf_counter()
     src = torch.from_numpy(_payload_bytes(x))
+    if pinned and dev.type == "cuda":
+        src = src.pin_memory()
+    build_s = time.perf_counter() - t0 if pinned else 0.0
+    events = _events(dev, device_time)
     t1 = time.perf_counter()
-    out = src.to(dev) if dev.type == "cuda" else src.clone()
+    if events:
+        events[0].record()
+    out = (src.to(dev, non_blocking=pinned) if dev.type == "cuda"
+           else src.clone())
+    if events:
+        events[1].record()
     t2 = time.perf_counter()
     wait(dev)
     t3 = time.perf_counter()
-    rec = _record("direct", x.nbytes, 0.0, t1, t2, t3)
+    rec = _record("direct", x.nbytes, build_s, t1, t2, t3, events)
     _emit_transfer(session, rec, t=t1)
     return _typed(out, x), rec
 

@@ -44,6 +44,8 @@ step function directly, the footprint fields are ``None`` and
 from __future__ import annotations
 
 import collections
+import contextlib
+import contextvars
 import ctypes
 import dataclasses
 import os
@@ -55,14 +57,31 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, wait
-from ..kernels import _build, launches
+from ..kernels import KernelCost, _build, launches
 from .doorbell import DoorbellTracker
 from .session import TraceSession, resolve_session
+from .stream import CommandStream, decode_graph, recorded_call
 
 __all__ = ["LaunchStats", "ExecGraph", "MultiStepLauncher", "LAUNCH_MODES",
-           "CapturedStep", "graph_footprint"]
+           "CapturedStep", "graph_footprint", "record_captures"]
 
 LAUNCH_MODES = ("per_op", "graphed", "multistep")
+
+_RECORDING: contextvars.ContextVar = contextvars.ContextVar(
+    "record_captures", default=False)
+
+
+@contextlib.contextmanager
+def record_captures() -> Any:
+    """Steps captured inside this block record their op-level stream
+    (``CapturedStep.ops``).  Off by default: the recorder intercepts every
+    op of the eager warm-up in Python, which costs a large gemma-2b decode
+    warm-up some 20 times its eager time on the card's host."""
+    token = _RECORDING.set(True)
+    try:
+        yield
+    finally:
+        _RECORDING.reset(token)
 
 
 def graph_footprint(graphs: List[int]) -> Tuple[int, int]:
@@ -80,6 +99,14 @@ def graph_footprint(graphs: List[int]) -> Tuple[int, int]:
             total_bytes += nbytes.value
             total_nodes += nodes.value
     return total_bytes, total_nodes
+
+
+def node_cost(x: torch.Tensor, scales: torch.Tensor, k: int, index_ptr: int,
+               stream: int) -> KernelCost:
+    """One node kernel's work (``ExecGraph._node``): x and the node's scale
+    and index read, x written; one multiply an element."""
+    return KernelCost("exec_graph", x.numel(), x.numel() * 4 + 8,
+                      x.numel() * 4)
 
 
 # (bytes, nodes) of one node captured alone, by device and width
@@ -105,9 +132,16 @@ class CapturedStep:
       and takes them back: a capture launches nothing;
     * and every call then replays the graph and adds the recorded launches.
 
+    Inside :func:`record_captures` the eager warm-up runs under the op
+    recorder (``core.stream``): ``ops`` is the step's op-level command
+    stream and ``record_s`` that run's time, so the stream is read without
+    running ``fn`` again (a serving step writes its KV cache).
+    ``pool_bytes`` is what the graph's memory pool took over the capture.
+
     A failed capture raises; there is no eager fallback on the card.  On the
-    CPU every call runs ``fn`` directly, so the CPU tests run exactly the
-    code the card captures.
+    CPU every call runs ``fn`` directly (the first one inside
+    :func:`record_captures` under the op recorder), so the CPU tests run
+    exactly the code the card captures.
     """
 
     def __init__(self, fn: Callable[[], Any], device: torch.device) -> None:
@@ -116,7 +150,10 @@ class CapturedStep:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Any = None
         self.launches: "collections.Counter[str]" = collections.Counter()
+        self.ops: Optional[CommandStream] = None
+        self.record_s = 0.0       # the recorded eager run, once
         self.upload_s = 0.0       # capture + instantiate + upload, once
+        self.pool_bytes: Optional[int] = None
 
     def capture(self) -> None:
         if self.device.type != "cuda" or self.graph is not None:
@@ -125,9 +162,17 @@ class CapturedStep:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
-            self.fn()
+            if _RECORDING.get():
+                _, self.ops, self.record_s = recorded_call(self.fn,
+                                                           self.device)
+            else:
+                self.fn()
         current.wait_stream(side)
         before = collections.Counter(launches)
+        # the capture empties the allocator's cache first; so do we, so
+        # that what is reserved after it is the graph's own pool
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
         try:
@@ -145,10 +190,14 @@ class CapturedStep:
             "graph_upload")
         wait(self.device)
         self.upload_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         self.graph, self.out, self.launches = graph, out, added
 
     def __call__(self) -> Any:
         if self.device.type != "cuda":
+            if self.ops is None and _RECORDING.get():
+                self.out, self.ops, self.record_s = recorded_call(self.fn)
+                return self.out
             return self.fn()
         self.capture()
         self.graph.replay()
@@ -292,12 +341,28 @@ class ExecGraph:
             elif mode == "graphed":
                 self._footprint[mode] = self._graphs[mode].footprint()
             else:
-                graph, body = ctypes.c_void_p(), ctypes.c_void_p()
-                _build.library().exec_graph_multistep_graphs(
-                    self._graphs[mode], ctypes.byref(graph), ctypes.byref(body))
-                self._footprint[mode] = graph_footprint([graph.value,
-                                                         body.value])
+                self._footprint[mode] = graph_footprint(
+                    list(self._multistep_graphs()))
         return self._footprint[mode]
+
+    def _multistep_graphs(self) -> Tuple[int, int]:
+        """The multistep graph's top-level graph and its WHILE body."""
+        graph, body = ctypes.c_void_p(), ctypes.c_void_p()
+        _build.library().exec_graph_multistep_graphs(
+            self._graphs["multistep"], ctypes.byref(graph), ctypes.byref(body))
+        return graph.value, body.value
+
+    def decode(self, mode: str) -> CommandStream:
+        """The graph a ``graphed`` or ``multistep`` launch submits, decoded
+        node by node (``core.stream.decode_graph``; card only)."""
+        if self.device.type != "cuda" or mode == "per_op":
+            raise RuntimeError(f"decode: no {mode} graph on {self.device}")
+        if mode not in self._graphs:
+            self.upload(mode)
+        if mode == "graphed":
+            return decode_graph(self._graphs[mode].graph)
+        graph, body = self._multistep_graphs()
+        return decode_graph(graph, [body])
 
     # -- launch (≙ cudaGraphLaunch) ------------------------------------------
     def launch(self, mode: str, tracker: Optional[DoorbellTracker] = None,

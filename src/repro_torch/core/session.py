@@ -4,8 +4,8 @@ This is the port's copy of ``repro.core.session``.  The event schema
 (:class:`TraceEvent`, span stamps, ``obs.span``/``obs.barrier`` names) is
 unchanged, so the reference's ``repro.obs`` tools read the port's JSONL.  The
 bound doorbell, transfer and progress facades are ported (``sess.doorbell``,
-``sess.mover``, ``sess.progress``, ``sess.wrap``, ``sess.put``); the capture
-facade (``lower_and_compile``) waits for the port of ``capture.py``.
+``sess.mover``, ``sess.progress``, ``sess.wrap``, ``sess.put``) and so is
+the capture facade (``sess.capture``, ``sess.lower_and_compile``).
 
 The paper's methodological core is a *single, complete* observation point —
 the doorbell watchpoint — through which every submission passes exactly once.
@@ -397,6 +397,7 @@ class TraceSession:
     Usage (ambient activation — instrumented paths report implicitly)::
 
         with TraceSession("serve", jsonl_path="trace.jsonl") as sess:
+            cs = sess.capture.lower_and_compile("step", step_fn, args=(...,))
             step = sess.wrap(model.decode_step, "decode_step")
             step(params, state, tokens)             # -> dispatch event
         print(sess.report())
@@ -452,9 +453,11 @@ class TraceSession:
         # Bound subsystem facades — one session drives everything.  Imported
         # lazily to avoid an import cycle (those modules import this one).
         # None of them touches the device before its first use.
+        from .capture import CommandStreamCapture
         from .dma import HybridMover
         from .doorbell import DoorbellTracker
         from .semaphore import ProgressTracker
+        self.capture = CommandStreamCapture(session=self)
         self.doorbell = DoorbellTracker(session=self)
         self.mover = HybridMover(session=self)
         self.progress = ProgressTracker(session=self)
@@ -628,6 +631,10 @@ class TraceSession:
              block: bool = False) -> Callable:
         """Doorbell-wrap a callable; each call lands a ``dispatch`` event."""
         return self.doorbell.wrap(fn, name=name, block=block)
+
+    def lower_and_compile(self, name: str, fn: Callable, **kw: Any):
+        """Capture a submission unit through the bound capture facade."""
+        return self.capture.lower_and_compile(name, fn, **kw)
 
     def put(self, x: Any):
         """Move data through the bound :class:`HybridMover`."""

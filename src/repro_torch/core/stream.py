@@ -1,0 +1,605 @@
+"""The command stream of one submission unit, the port's counterpart of
+``repro.core.hlo``.
+
+The paper reconstructs the pushbuffer a doorbell commits and decodes each
+method.  The reference decodes XLA's compiled HLO, the instruction stream a
+TPU consumes.  On CUDA the submission unit is a captured CUDA Graph
+(``core.graphs.CapturedStep``), and the port reads it two ways:
+
+* :func:`decode_graph` reads the graph itself through the runtime's graph
+  API and the driver's (``kernels/csrc/graph_decode.cu``): every node, in
+  capture order, with its type, and for a kernel its function's name, grid,
+  block, dynamic shared memory and cluster; for a copy or a fill its bytes
+  and direction; conditional and child-graph bodies are decoded in turn.
+  This is what the driver turns into pushbuffer entries, complete and
+  unsampled.  Card only; a graph it cannot read raises.
+* :func:`record_ops` records the aten ops of one run of a function under a
+  ``TorchDispatchMode``: their operand and result bytes, their FLOPs (the
+  matmul, convolution and attention family by ``torch.utils.flop_counter``'s
+  formulas, elementwise ops by result elements and reductions by operand
+  elements, as the reference counts HLO), their Python call path and their
+  engine.  The port's kernels are no aten ops; each reports one ``kernel``
+  entry with its cost (``kernels.recorded``).  Any device, the CPU included.
+
+:class:`CommandEntry`, :class:`CommandStream` (totals, engine and opcode
+counts, collective accounting), :func:`dtype_bytes`, ``COLLECTIVE_OPS`` and
+``_link_bytes`` are the reference's, as the port's own copy.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import os
+import re
+import sys
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
+
+from .. import kernels as _kernels
+
+__all__ = [
+    "CommandEntry",
+    "CommandStream",
+    "GraphEntry",
+    "decode_graph",
+    "record_ops",
+    "dtype_bytes",
+    "kernel_label",
+    "kernel_base",
+    "COLLECTIVE_OPS",
+]
+
+_DTYPE_BYTES: Dict[str, float] = {
+    "pred": 1, "s2": 0.25, "s4": 0.5, "s8": 1, "s16": 2, "s32": 4, "s64": 8,
+    "u2": 0.25, "u4": 0.5, "u8": 1, "u16": 2, "u32": 4, "u64": 8,
+    "f8e4m3fn": 1, "f8e5m2": 1, "f8e4m3b11fnuz": 1, "f8e4m3": 1,
+    "f8e5m2fnuz": 1, "f8e4m3fnuz": 1, "f8e3m4": 1, "f8e8m0fnu": 1,
+    "f4e2m1fn": 0.5, "bf16": 2, "f16": 2, "f32": 4, "f64": 8,
+    "c64": 8, "c128": 16, "token": 0, "opaque": 0,
+}
+
+COLLECTIVE_OPS = (
+    "all-gather",
+    "all-reduce",
+    "reduce-scatter",
+    "all-to-all",
+    "collective-permute",
+    "collective-broadcast",
+    "ragged-all-to-all",
+)
+
+
+def dtype_bytes(dtype: str) -> float:
+    return _DTYPE_BYTES.get(dtype, 4)
+
+
+def _link_bytes(opcode: str, result_b: int, operand_b: int, n: int) -> int:
+    """Per-device link bytes for a ring realization of the collective."""
+    if n <= 1:
+        return 0
+    frac = (n - 1) / n
+    if opcode.startswith("all-gather"):
+        # async '-start' ops carry (operand, result) tuples; recover the
+        # gathered buffer size before applying the ring fraction.
+        gathered = result_b - operand_b if opcode.endswith("-start") else result_b
+        return int(max(gathered, operand_b) * frac)
+    if opcode.startswith("reduce-scatter"):
+        return int(operand_b * frac)
+    if opcode.startswith("all-reduce"):
+        return int(2 * operand_b * frac)
+    if opcode.startswith(("all-to-all", "ragged-all-to-all")):
+        return int(operand_b * frac)
+    if opcode.startswith(("collective-permute", "collective-broadcast")):
+        return int(operand_b)
+    return int(operand_b * frac)
+
+
+@dataclasses.dataclass
+class CommandEntry:
+    """One decoded command: an aten op, a kernel call or a graph node."""
+
+    index: int
+    name: str
+    opcode: str
+    computation: str
+    multiplier: int            # execution count (1; unknown under a conditional)
+    result_bytes: int
+    operand_bytes: int
+    engine: str                # compute | collective | transfer | control | host | kernel | other
+    flops: int = 0             # per single execution
+    group_size: int = 1
+    link_bytes: int = 0        # per single execution, per-device link bytes
+    op_path: str = ""          # Python call path, or the kernel's name
+    raw: str = ""
+
+    def describe(self) -> str:
+        extra = ""
+        if self.engine == "collective":
+            extra = f" groups={self.group_size} link_bytes={self.link_bytes}"
+        if self.flops:
+            extra += f" flops={self.flops}"
+        mult = f" x{self.multiplier}" if self.multiplier != 1 else ""
+        return (f"CS[{self.index:>4d}] {self.opcode:<22s} {self.engine:<10s}"
+                f" out={self.result_bytes}B in={self.operand_bytes}B{extra}{mult}")
+
+
+@dataclasses.dataclass
+class GraphEntry(CommandEntry):
+    """One node of a decoded CUDA Graph (:func:`decode_graph`).
+
+    ``name`` is a kernel's mangled name (``<unnamed>`` where the driver
+    would not give it), ``op_path`` its demangled name and ``label`` its
+    short label (:func:`kernel_label`); ``depth`` counts the conditional
+    or child-graph bodies the node sits in."""
+
+    label: str = ""
+    grid: Tuple[int, int, int] = (0, 0, 0)
+    block: Tuple[int, int, int] = (0, 0, 0)
+    cluster: Tuple[int, int, int] = (0, 0, 0)
+    shared_bytes: int = 0
+    direction: str = ""
+    depth: int = 0
+
+    def describe(self) -> str:
+        pad = "  " * self.depth
+        head = f"CS[{self.index:>4d}] {pad}{self.opcode:<12s}"
+        if self.opcode == "kernel":
+            cl = (f" cluster={self.cluster}"
+                  if max(self.cluster) > 1 else "")
+            return (f"{head} {self.label:<44s} grid={self.grid} "
+                    f"block={self.block} smem={self.shared_bytes}B{cl}")
+        if self.opcode in ("memcpy", "memset"):
+            return f"{head} {self.result_bytes}B {self.direction}"
+        return head.rstrip() + (f" {self.raw}" if self.raw else "")
+
+
+@dataclasses.dataclass
+class CommandStream:
+    """A fully decoded command stream (one submission unit)."""
+
+    entries: List[CommandEntry]
+    text_bytes: int
+    n_ops: int
+    unknown_trip_counts: bool = False
+
+    # ---- aggregates (all multiplier weighted) ----------------------------
+    @property
+    def total_flops(self) -> int:
+        return sum(e.flops * e.multiplier for e in self.entries)
+
+    @property
+    def memory_bytes(self) -> int:
+        """Memory-traffic proxy: operand+result bytes of every executed
+        command (each op's inputs and outputs cross device memory)."""
+        return sum((e.result_bytes + e.operand_bytes) * e.multiplier
+                   for e in self.entries
+                   if e.engine not in ("control",) or e.opcode == "fusion")
+
+    @property
+    def collective_entries(self) -> List[CommandEntry]:
+        return [e for e in self.entries if e.engine == "collective"]
+
+    @property
+    def collective_link_bytes(self) -> int:
+        return sum(e.link_bytes * e.multiplier for e in self.collective_entries)
+
+    def collective_bytes_by_op(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for e in self.collective_entries:
+            key = e.opcode.replace("-start", "").replace("-done", "")
+            out[key] = out.get(key, 0) + e.link_bytes * e.multiplier
+        return out
+
+    def collective_counts(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for e in self.collective_entries:
+            if e.opcode.endswith("-done"):
+                continue
+            key = e.opcode.replace("-start", "")
+            out[key] = out.get(key, 0) + e.multiplier
+        return out
+
+    def counts_by_engine(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for e in self.entries:
+            out[e.engine] = out.get(e.engine, 0) + 1
+        return out
+
+    def counts_by_opcode(self, top: int = 0) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for e in self.entries:
+            out[e.opcode] = out.get(e.opcode, 0) + 1
+        if top:
+            out = dict(sorted(out.items(), key=lambda kv: -kv[1])[:top])
+        return out
+
+    def summary(self) -> Dict[str, object]:
+        return {
+            "n_ops": self.n_ops,
+            "command_bytes": self.text_bytes,
+            "flops": self.total_flops,
+            "memory_bytes": self.memory_bytes,
+            "collective_link_bytes": self.collective_link_bytes,
+            "collectives": self.collective_bytes_by_op(),
+            "collective_counts": self.collective_counts(),
+            "unknown_trip_counts": self.unknown_trip_counts,
+        }
+
+
+# ---------------------------------------------------------------- kernel names
+def kernel_label(mangled: str) -> str:
+    """``flash_attention_mma_kernel<256>`` from an Itanium-mangled name: the
+    first length-prefixed identifier ending in ``_kernel``, and its template
+    arguments (types and integers); the name itself if there is none."""
+    for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", mangled):
+        n, ident = int(m.group(1)), m.group(2)
+        if len(ident) >= n and ident[:n].endswith("_kernel"):
+            args = re.match(r"I(.*?)EE", ident[n:])
+            if not args:
+                return ident[:n]
+            names = {"f": "float", "13__nv_bfloat16": "bf16"}
+            toks = re.findall(r"13__nv_bfloat16|Li\d+|f", args.group(1))
+            return ident[:n] + "<" + ", ".join(
+                names.get(t, t[2:]) for t in toks) + ">"
+    return mangled
+
+
+def kernel_base(name: str) -> str:
+    """The qualified function name of a demangled kernel name, without its
+    return type, template arguments and parameters
+    (``(anonymous namespace)::rms_norm_kernel``); a name that is no C++
+    signature comes back as it is."""
+    s = name.replace("(anonymous namespace)", "\0")
+    if s.startswith("void "):
+        s = s[5:]
+    s = re.split(r"[<(]", s, maxsplit=1)[0].strip()
+    return s.replace("\0", "(anonymous namespace)")
+
+
+# ---------------------------------------------------------------- graph decode
+# CUgraphNodeType -> (opcode, engine); kernels on the compute engines,
+# copies and fills on the copy engine, the rest is control or host work
+_NODE_TYPES = {
+    0: ("kernel", "compute"), 1: ("memcpy", "transfer"),
+    2: ("memset", "transfer"), 3: ("host", "host"), 4: ("graph", "control"),
+    5: ("empty", "control"), 6: ("event_wait", "control"),
+    7: ("event_record", "control"), 8: ("semaphore_signal", "control"),
+    9: ("semaphore_wait", "control"), 10: ("mem_alloc", "control"),
+    11: ("mem_free", "control"), 12: ("batch_mem_op", "control"),
+    13: ("conditional", "control"),
+}
+_KERNEL, _CHILD, _CONDITIONAL = 0, 4, 13
+# cudaMemcpyKind
+_DIRECTIONS = {0: "host->host", 1: "host->device", 2: "device->host",
+               3: "device->device", 4: "default"}
+_NAME_BYTES = 1024
+
+
+class _NodeRecord(ctypes.Structure):
+    """``NodeRecord`` of ``kernels/csrc/graph_decode.cu``."""
+
+    _fields_ = [("type", ctypes.c_int), ("status", ctypes.c_int),
+                ("stage", ctypes.c_int),
+                ("name", ctypes.c_char * _NAME_BYTES),
+                ("demangled", ctypes.c_char * _NAME_BYTES),
+                ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                ("cluster", ctypes.c_uint * 3),
+                ("shared_bytes", ctypes.c_uint), ("bytes", ctypes.c_longlong),
+                ("direction", ctypes.c_int), ("body", ctypes.c_void_p)]
+
+
+def _graph_handle(graph: Any) -> int:
+    if isinstance(graph, int):
+        return graph
+    if hasattr(graph, "raw_cuda_graph"):
+        return graph.raw_cuda_graph()
+    raise TypeError(f"decode_graph: expected a cudaGraph_t handle or a "
+                    f"torch.cuda.CUDAGraph, got {type(graph).__name__}")
+
+
+# the graph API call of graph_decode that failed (NodeRecord::stage)
+_STAGES = ("", "cuGraphNodeGetType", "cuGraphKernelNodeGetParams",
+           "cudaGraphMemcpyNodeGetParams", "cudaGraphMemsetNodeGetParams",
+           "cudaGraphChildGraphNodeGetGraph")
+
+
+def _graph_nodes(lib: Any, graph: int) -> Sequence[_NodeRecord]:
+    from ..kernels import _build
+    n = ctypes.c_longlong()
+    _build.check(lib.graph_decode(graph, None, 0, ctypes.byref(n)),
+                 f"graph_decode of graph {hex(graph)}")
+    recs = (_NodeRecord * n.value)()
+    err = lib.graph_decode(graph, ctypes.cast(recs, ctypes.c_void_p), n.value,
+                           ctypes.byref(n))
+    if err:
+        r = recs[n.value]
+        opcode = _NODE_TYPES.get(r.type, (f"type{r.type}",))[0]
+        _build.check(err, f"graph_decode of graph {hex(graph)}, node "
+                     f"{n.value} ({opcode}): {_STAGES[r.stage]}")
+    return recs[:n.value]
+
+
+def _graph_entry(index: int, r: _NodeRecord, graph: int, depth: int
+                 ) -> GraphEntry:
+    opcode, engine = _NODE_TYPES.get(r.type, (f"type{r.type}", "other"))
+    e = GraphEntry(index=index, name="", opcode=opcode,
+                   computation=hex(graph), multiplier=1, result_bytes=0,
+                   operand_bytes=0, engine=engine, depth=depth)
+    if r.type == _KERNEL:
+        e.name = r.name.decode(errors="replace") or "<unnamed>"
+        e.op_path = r.demangled.decode(errors="replace") or e.name
+        e.label = kernel_label(e.name)
+        if e.label == e.name != "<unnamed>":     # no ..._kernel in the name
+            e.label = kernel_base(e.op_path).rsplit("::", 1)[-1]
+        e.grid, e.block, e.cluster = (tuple(r.grid), tuple(r.block),
+                                      tuple(r.cluster))
+        e.shared_bytes = r.shared_bytes
+    elif opcode == "memcpy":
+        e.result_bytes = e.operand_bytes = r.bytes
+        e.direction = _DIRECTIONS.get(r.direction, str(r.direction))
+    elif opcode == "memset":
+        e.result_bytes = r.bytes
+        e.direction = "device"
+    elif r.type == _CHILD:
+        e.raw = f"body {hex(r.body or 0)}"
+    return e
+
+
+def decode_graph(graph: Any, bodies: Sequence[int] = ()) -> CommandStream:
+    """Every node of a captured CUDA Graph, in capture order, conditional
+    and child-graph bodies decoded after their node (card only).
+
+    ``graph`` is a raw ``cudaGraph_t`` or a ``torch.cuda.CUDAGraph`` kept
+    with ``keep_graph=True``.  A child graph's body comes from the runtime;
+    a conditional node's from ``bodies`` (one a conditional node, in
+    order), since the code that built the graph knows it: a conditional
+    node without one raises.  Conditional bodies run an unknown number of times:
+    ``unknown_trip_counts`` is set and their nodes count once, as the
+    reference counts a while loop without ``known_trip_count``.  ``n_ops``
+    counts the decoded nodes; ``text_bytes`` is, by definition, the bytes
+    of ``graph_footprint`` over the graph and every body it holds."""
+    from ..kernels import _build
+    from .graphs import graph_footprint
+    lib = _build.library()
+    if lib.graph_decode_record_bytes() != ctypes.sizeof(_NodeRecord):
+        raise RuntimeError("graph_decode: the library's node record is "
+                           f"{lib.graph_decode_record_bytes()} bytes, the "
+                           f"binding's {ctypes.sizeof(_NodeRecord)}")
+    entries: List[CommandEntry] = []
+    graphs: List[int] = []
+    supplied = list(bodies)
+    unknown = False
+
+    def walk(g: int, depth: int) -> None:
+        nonlocal unknown
+        graphs.append(g)
+        for r in _graph_nodes(lib, g):
+            entries.append(_graph_entry(len(entries), r, g, depth))
+            if r.type == _CHILD:
+                walk(r.body, depth + 1)
+            elif r.type == _CONDITIONAL:
+                if not supplied:
+                    raise RuntimeError(
+                        f"decode_graph: conditional node {len(entries) - 1} "
+                        f"of graph {hex(g)}: no body graph supplied")
+                unknown = True
+                walk(supplied.pop(0), depth + 1)
+
+    walk(_graph_handle(graph), 0)
+    if supplied:
+        raise ValueError(f"decode_graph: {len(supplied)} supplied body "
+                         f"graphs were not needed")
+    return CommandStream(entries=entries,
+                         text_bytes=graph_footprint(graphs)[0],
+                         n_ops=len(entries), unknown_trip_counts=unknown)
+
+
+# ---------------------------------------------------------------- op record
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CORE = os.path.dirname(os.path.abspath(__file__))
+_KERNELS_INIT = os.path.join(_PKG, "kernels", "__init__.py")
+# no device traffic: aliases, allocations, metadata, and a scalar read to
+# the host (a captured step holds none; a host-side constant's does not count)
+_FREE_OPS = frozenset((
+    "detach", "alias", "lift_fresh", "_unsafe_view", "_local_scalar_dense",
+    "empty", "empty_like", "empty_strided",
+    "new_empty", "new_empty_strided", "resize_", "set_", "record_stream",
+    "sym_size", "sym_stride", "sym_numel", "sym_storage_offset",
+    "is_same_size", "_has_compatible_shallow_copy_type"))
+# the reference's transfer class: copies, gathers, scatters, concatenation,
+# padding, fills and constants
+_TRANSFER_OPS = frozenset((
+    "copy", "clone", "index", "_unsafe_index", "index_select", "gather",
+    "scatter", "scatter_add", "scatter_reduce", "index_put", "_unsafe_index_put",
+    "index_copy", "index_add", "index_fill", "masked_scatter", "put", "take",
+    "cat", "stack", "constant_pad_nd", "pad", "embedding", "slice_scatter",
+    "select_scatter", "roll", "flip", "repeat", "fill", "zero", "zeros",
+    "zeros_like", "ones", "ones_like", "full", "full_like", "arange",
+    "scalar_tensor", "tril", "triu"))
+# gathers read only the rows they return (and their indices), as the
+# reference charges a dynamic-slice its slice
+_GATHERS = frozenset(("index", "_unsafe_index", "index_select", "gather",
+                      "embedding", "take"))
+# in-place ops that write only the rows of their source
+_SCATTERS = frozenset(("index_put", "_unsafe_index_put", "index_copy",
+                       "index_add", "scatter", "scatter_add", "scatter_reduce",
+                       "masked_scatter", "put", "slice_scatter", "select_scatter"))
+_ELEMENTWISE_OPS = frozenset((
+    "add", "sub", "rsub", "mul", "div", "maximum", "minimum", "pow", "tanh",
+    "exp", "log", "rsqrt", "sqrt", "neg", "abs", "floor", "ceil", "sign", "cos",
+    "sin", "sigmoid", "expm1", "log1p", "erf", "atan2", "remainder", "round",
+    "reciprocal", "square", "gelu", "silu", "relu", "softplus", "clamp",
+    "clamp_min", "clamp_max", "where", "masked_fill", "eq", "ne", "lt", "le",
+    "gt", "ge", "logical_and", "logical_or", "logical_not", "bitwise_and",
+    "bitwise_or", "bitwise_not", "lerp", "addcmul", "addcdiv"))
+_REDUCE_OPS = frozenset((
+    "sum", "mean", "amax", "amin", "max", "min", "argmax", "argmin", "prod",
+    "var", "std", "norm", "linalg_vector_norm", "logsumexp", "any", "all",
+    "cumsum", "cumprod", "_softmax", "_log_softmax", "topk", "sort"))
+
+
+def _tensors(x: Any) -> List[torch.Tensor]:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+def _nbytes(ts: Sequence[torch.Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _call_path(top: Any) -> str:
+    """The port's functions on the Python stack below the frame ``top``,
+    outermost first (the recorder's own frames left out)."""
+    names = []
+    f = sys._getframe(2)
+    while f is not None and f is not top:
+        fn = f.f_code.co_filename
+        if (fn.startswith(_PKG) and not fn.startswith(_CORE)
+                and fn != _KERNELS_INIT):
+            names.append(f.f_code.co_name)
+        f = f.f_back
+    return "/".join(reversed(names))
+
+
+class _OpRecorder(TorchDispatchMode):
+    """Records every aten op of a run, and one entry per kernel call;
+    ``top`` is the frame that runs the recorded function."""
+
+    def __init__(self, top: Any) -> None:
+        super().__init__()
+        self.entries: List[CommandEntry] = []
+        self._top = top
+        self._inside = 0          # > 0 inside a kernel wrapper
+
+    def _add(self, e: CommandEntry) -> None:
+        e.index = len(self.entries)
+        self.entries.append(e)
+
+    # -- kernels (called by kernels.recorded) -------------------------------
+    def kernel(self, fn: Callable, cost: Callable, args: tuple,
+               kwargs: dict) -> Any:
+        if self._inside:
+            return fn(*args, **kwargs)
+        self._inside += 1
+        try:
+            out = fn(*args, **kwargs)
+        finally:
+            self._inside -= 1
+        c = cost(*args, **kwargs)
+        self._add(CommandEntry(
+            index=0, name=c.name, opcode=c.name, computation="eager",
+            multiplier=1, result_bytes=c.result_bytes,
+            operand_bytes=c.operand_bytes, engine="kernel", flops=c.flops,
+            op_path=c.name, raw=f"kernel {c.name} flops={c.flops} "
+            f"in={c.operand_bytes}B out={c.result_bytes}B"))
+        return out
+
+    # -- aten ops ---------------------------------------------------------
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if self._inside:
+            return func(*args, **kwargs)
+        # under inference_mode a composite op (matmul, einsum, linear)
+        # reaches the mode whole: record what it decomposes into, as it
+        # would outside inference_mode
+        if torch._C._dispatch_has_kernel_for_dispatch_key(
+                func.name(), torch._C.DispatchKey.CompositeImplicitAutograd):
+            with self:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
+        out = func(*args, **kwargs)
+        self._record(func, args, kwargs, out)
+        return out
+
+    def _record(self, func, args, kwargs, out) -> None:
+        packet = func.overloadpacket
+        op = packet.__name__
+        base = op[:-1] if op.endswith("_") and not op.startswith("_") else op
+        if func.is_view or op in _FREE_OPS or base in _FREE_OPS:
+            return
+        written, read = [], []
+        by_name: Dict[str, List[torch.Tensor]] = {}
+        for i, a in enumerate(func._schema.arguments):
+            ts = _tensors(args[i] if i < len(args) else kwargs.get(a.name))
+            by_name[a.name] = ts
+            if a.alias_info is not None and a.alias_info.is_write:
+                written += ts
+            else:
+                read += ts
+        results = _tensors(out)
+        operand_b = _nbytes(read)
+        if base in _GATHERS and read:
+            operand_b += _nbytes(results) - _nbytes(read[:1])
+        if written and base in _SCATTERS:
+            # in place into rows: the write is the source's rows
+            result_b = _nbytes(by_name.get("values") or by_name.get("source")
+                               or by_name.get("src") or [])
+        elif written:
+            result_b = _nbytes(written)       # in place: one write, charged once
+        else:
+            result_b = _nbytes(results)
+        flops = 0
+        if packet in flop_registry:
+            engine = "compute"
+            flops = int(flop_registry[packet](*args, **kwargs, out_val=out))
+        elif base in _TRANSFER_OPS or (
+                base == "_to_copy" and results and read
+                and results[0].device != read[0].device):
+            engine = "transfer"
+        else:
+            engine = "other"
+            if base in _ELEMENTWISE_OPS:
+                flops = sum(t.numel() for t in (results or written))
+            elif base in _REDUCE_OPS and read:
+                flops = read[0].numel()
+        shapes = ",".join(f"{list(t.shape)}" for t in read)
+        raw = f"{func} ({shapes}) -> " + ",".join(
+            f"{list(t.shape)}" for t in (results or written))
+        self._add(CommandEntry(
+            index=0, name=str(func), opcode=op, computation="eager",
+            multiplier=1, result_bytes=result_b, operand_bytes=operand_b,
+            engine=engine, flops=flops,
+            op_path=f"{_call_path(self._top)}/{op}",
+            raw=raw[:240]))
+
+    def stream(self) -> CommandStream:
+        """The recorded entries; ``text_bytes`` is the size of their listing
+        (one ``raw`` line an entry)."""
+        text = "\n".join(e.raw for e in self.entries)
+        return CommandStream(entries=self.entries,
+                             text_bytes=len(text.encode()),
+                             n_ops=len(self.entries))
+
+
+def recorded_call(fn: Callable, device: Optional[torch.device] = None
+                  ) -> Tuple[Any, CommandStream, float]:
+    """Run ``fn()`` once under the op recorder: its result, its op-level
+    stream and the run's wall time (on a CUDA ``device`` until its current
+    stream has run it)."""
+    rec = _OpRecorder(sys._getframe())
+    prev = _kernels.recorder
+    _kernels.recorder = rec
+    t0 = time.perf_counter()
+    try:
+        with rec:
+            out = fn()
+        if device is not None and device.type == "cuda":
+            torch.cuda.current_stream(device).synchronize()
+    finally:
+        _kernels.recorder = prev
+    return out, rec.stream(), time.perf_counter() - t0
+
+
+def record_ops(fn: Callable, *args: Any) -> CommandStream:
+    """The op-level command stream of one run of ``fn(*args)`` under
+    ``torch.inference_mode()``, on any device."""
+    with torch.inference_mode():
+        return recorded_call(lambda: fn(*args))[1]

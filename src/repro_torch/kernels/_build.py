@@ -123,6 +123,10 @@ def library() -> ctypes.CDLL:
     lib.graph_footprint.argtypes = [ptr, ctypes.c_char_p, ctypes.POINTER(i64),
                                     ctypes.POINTER(i64)]
     lib.graph_upload.argtypes = [ptr, ptr]
+    lib.graph_decode.argtypes = [ptr, ptr, i64, ctypes.POINTER(i64)]
+    lib.graph_decode.restype = i32
+    lib.graph_decode_record_bytes.argtypes = []
+    lib.graph_decode_record_bytes.restype = i32
     for fn in (lib.exec_graph_prepare, lib.exec_graph_node,
                lib.exec_graph_multistep_build, lib.exec_graph_multistep_launch,
                lib.exec_graph_multistep_destroy, lib.graph_footprint,

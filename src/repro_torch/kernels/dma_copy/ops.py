@@ -18,11 +18,11 @@ from typing import List, Tuple
 
 import torch
 
-from .. import _build, launches
+from .. import KernelCost, _build, launches, recorded
 from .ref import dma_copy_tiled
 
-__all__ = ["dma_copy", "MODES", "SLICE_BYTES", "pipelined_split",
-           "occupancy"]
+__all__ = ["dma_copy", "dma_copy_cost", "MODES", "SLICE_BYTES",
+           "pipelined_split", "occupancy"]
 
 MODES = ("pipelined", "explicit")
 # bytes a block of the pipelined copy moves: one pass of its 256 threads,
@@ -38,6 +38,14 @@ def pipelined_split(tile_bytes: int) -> List[Tuple[int, int]]:
             for b in range(0, tile_bytes, SLICE_BYTES)]
 
 
+def dma_copy_cost(x: torch.Tensor, mode: str = "pipelined",
+                  block_rows: int = 256) -> KernelCost:
+    """x read once and its copy written once; no operation."""
+    nbytes = x.numel() * x.element_size()
+    return KernelCost(f"dma_copy_{mode}", 0, nbytes, nbytes)
+
+
+@recorded(dma_copy_cost)
 def dma_copy(x: torch.Tensor, mode: str = "pipelined",
              block_rows: int = 256) -> torch.Tensor:
     """x: [R, C] contiguous, any type -> a new [R, C] copy.

@@ -12,14 +12,27 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build, launches
+from .. import KernelCost, _build, launches, recorded
 from .ref import flash_attention_ref
 
-__all__ = ["flash_attention", "HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_cost", "HEAD_DIMS"]
 
 HEAD_DIMS = (64, 128, 256)
 
 
+def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True) -> KernelCost:
+    """q, k and v read, the output written; two products of 2 * hd
+    operations over the (causal) query-key pairs of every head."""
+    B, S, H, hd = q.shape
+    item = q.element_size()
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return KernelCost("flash_attention", 4 * B * H * hd * pairs,
+                      (q.numel() + k.numel() + v.numel()) * item,
+                      q.numel() * item)
+
+
+@recorded(flash_attention_cost)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """q: [B, S, H, hd]; k, v: [B, S, Hkv, hd], Hkv | H -> [B, S, H, hd]."""

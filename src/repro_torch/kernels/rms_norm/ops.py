@@ -8,14 +8,24 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build, launches
+from .. import KernelCost, _build, launches, recorded
 from .ref import rms_norm_ref
 
-__all__ = ["rms_norm", "MAX_D"]
+__all__ = ["rms_norm", "rms_norm_cost", "MAX_D"]
 
 MAX_D = 16384
 
 
+def rms_norm_cost(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-6) -> KernelCost:
+    """x and scale read, the output written; no operation is counted (the
+    bound is the bytes)."""
+    nbytes = x.numel() * x.element_size()
+    return KernelCost("rms_norm", 0, nbytes + scale.numel() * x.element_size(),
+                      nbytes)
+
+
+@recorded(rms_norm_cost)
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """x: [..., D] contiguous; scale: [D] of x's type -> [..., D]."""

@@ -14,11 +14,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .. import _build, launches
+from .. import KernelCost, _build, launches, recorded
 from .ref import ssd_chunked
 
-__all__ = ["ssd_scan", "workspace_shapes", "MAX_P", "MAX_N", "MAX_CHUNK",
-           "TILE"]
+__all__ = ["ssd_scan", "ssd_scan_cost", "workspace_shapes", "MAX_P", "MAX_N",
+           "MAX_CHUNK", "TILE"]
 
 MAX_P = 64
 MAX_N = 128
@@ -38,6 +38,27 @@ def workspace_shapes(B: int, S: int, H: int, P: int, N: int, chunk: int
             "states": (B, H, n - 1, P, N)}
 
 
+def ssd_scan_cost(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  Bc: torch.Tensor, Cc: torch.Tensor, chunk: int = 128
+                  ) -> KernelCost:
+    """x, dt, A, B and C read, y written; the products the call needs: per
+    (batch, chunk) C B^T over the causal pairs, once for all heads; per head
+    the intra-chunk term over the causal pairs, the inter-chunk term C h^T
+    of every chunk after the first and the state of every chunk before the
+    last."""
+    B, S, H, P = xh.shape
+    N = Bc.shape[-1]
+    Q = min(chunk, S)
+    pairs, n = Q * (Q + 1) // 2, S // Q
+    item = xh.element_size()
+    flops = 2 * B * (n * (pairs * N + H * pairs * P)
+                     + 2 * (n - 1) * H * Q * N * P)
+    return KernelCost("ssd_scan", flops,
+                      B * S * H * P * item + (B * S * H + H) * 4
+                      + 2 * B * S * N * item, B * S * H * P * item)
+
+
+@recorded(ssd_scan_cost)
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bc: torch.Tensor, Cc: torch.Tensor, chunk: int = 128
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
