@@ -169,6 +169,37 @@ K3. K2's paged engine at T=1 with a pool of two slots' pages: requests are
 one ``<card> | loadtest <arch> T=<T> spec=<spec>: ...`` line per replay
 (``spec=K<n> kv=<mode>`` in phase K);
 
+then phase T, training (``Trainer``: every launch of K steps one CUDA Graph
+replay, the first the capture's eager warm-up; the train route,
+``impl="ref"``, launches none of the port's kernels, and a counted launch
+fails the phase):
+
+T1. gemma-2b at full width (bf16 params, fp32 master weights and moments,
+    remat), ``launch/train.py``'s B=8, S=256, at K=1 (6 launches) and K=4
+    (2 launches), then mamba2-780m at K=1 (4 launches, plain SSD), each
+    from the seeded start and held step by step to an eager, uncaptured
+    control from the same start within 2^-8 relative; one ``<card> |
+    train <arch> K=<k> ...`` line a run: step ms (CUDA events around each
+    replay), tokens/s, losses, doorbells, graph nodes, footprint, capture
+    s, pool and peak GiB;
+T3. the K=1 gemma-2b train graph decoded and held to torch.profiler's
+    records of one replay (as S2), its node types and top kernels, the
+    op-level FLOPs and bytes recorded at its capture and its roofline;
+T2. ``benchmarks/bench_submission.py``'s ``_multistep_economy``
+    (deepseek-7b's smoke config, B=4, S=64, K = 1, 4, 16 over 16 steps,
+    then 16 more): host us per step with and without the capturing launch,
+    doorbells 16 / 4 / 1, final loss, graph nodes and footprint; K=4's
+    losses equal K=1's within 1e-3 relative;
+
+every profiler window of the script (phase 5, C1, S2, K1-K2, T3 and the
+device times) matches torch.profiler's records to their launches by
+correlation id: a graph launch to its decoded nodes, an eager kernel
+launch to one record.  Records missing under a launch are the tracer's
+loss, printed as a ``tracer loss`` line with CUPTI's dropped-record count
+and counted with the profiler's records; any other mismatch raises, and a
+device time is never read from a window with a loss (it is taken again, up
+to 3 times);
+
 and last, time each kernel at its path's shape beside its bound, its plain
 version and one library call where there is one (the DMA-copy kernels are
 timed in D2), and the flash kernel at B=1, S=4096 beside
@@ -185,7 +216,6 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
-import functools
 import gc
 import json
 import math
@@ -204,7 +234,8 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import resolve_device  # noqa: E402
-from repro_torch.configs import ARCHS, ModelConfig  # noqa: E402
+from repro_torch.configs import ARCHS, SMOKE_ARCHS, ModelConfig  # noqa: E402
+from repro_torch.configs.shapes import ShapeConfig  # noqa: E402
 from repro_torch.core import (H100_SXM, INLINE_THRESHOLD_DEFAULT,  # noqa: E402
                               SPAN_EVENT, CommandStreamCapture, HybridMover,
                               TraceSession, analyze, direct_put, inline_put,
@@ -231,6 +262,7 @@ from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import mamba as mamba_block_module  # noqa: E402
 from repro_torch.runtime.server import (ContinuousBatchingServer,  # noqa: E402
                                         Request, Server)
+from repro_torch.runtime.trainer import Trainer  # noqa: E402
 from repro_torch.runtime.traffic import (Arrival, TrafficSpec,  # noqa: E402
                                          generate, replay)
 
@@ -1019,9 +1051,10 @@ def held_to_graph(label: str, step, cs) -> Dict[str, int]:
     kernels equal the step's counted launches; all its kernel nodes, by
     function, equal torch.profiler's kernel records over one replay, and
     its copy and fill nodes the profiler's memcpy and memset records; the
-    nodes decoded (bodies walked) equal the footprint's node count.  The
-    decoded stream's bytes are the footprint's by definition.  Returns the
-    node counts by type."""
+    nodes decoded (bodies walked) equal the footprint's node count.  Records
+    the tracer lost under the replay (``launch_loss``) are reported and
+    counted with the profiler's; nothing else may differ.  The decoded stream's bytes
+    are the footprint's by definition.  Returns the node counts by type."""
     nodes = [e for e in cs.graph_stream.entries if e.opcode == "kernel"]
     for name, syms in KERNEL_SYMBOLS.items():
         n = step.launches.get(name, 0)
@@ -1030,7 +1063,10 @@ def held_to_graph(label: str, step, cs) -> Dict[str, int]:
             if seen > n or (seen < n and sym not in MULTI_CHUNK_ONLY):
                 raise AssertionError(f"{label}: {seen} {sym} nodes decoded "
                                      f"for {n} counted {name} launches")
-    rows, _ = _profile(step, warmup=False)
+    window = _profile(step, warmup=False, label=label)
+    rows = window.rows
+    lost = collections.Counter({k: n for k, n in window.lost.items()
+                                if k not in ("memcpy", "memset", EAGER_LOSS)})
     # a copy or fill node runs on a copy engine (a "Memcpy"/"Memset"
     # record) or as one of the driver's own kernels (memcpy32_post)
     copies = collections.Counter()
@@ -1044,15 +1080,15 @@ def held_to_graph(label: str, step, cs) -> Dict[str, int]:
             profiled[kernel_base(e.key)] += e.count
             full[e.key] += e.count
     decoded = decoded_kernels(cs.graph_stream)
-    if decoded != profiled:
+    if decoded != profiled + lost:
         raise AssertionError(f"{label}: decoded kernel nodes and the "
                              f"profiler's records differ: decoded only "
-                             f"{dict(decoded - profiled)}, profiled only "
-                             f"{dict(profiled - decoded)}")
+                             f"{dict(decoded - profiled - lost)}, profiled "
+                             f"only {dict(profiled - decoded)}")
     counts = cs.graph_stream.counts_by_opcode()
     for kind in ("memcpy", "memset"):
         seen = sum(n for (k, _), n in copies.items() if k == kind)
-        if counts.get(kind, 0) != seen:
+        if counts.get(kind, 0) != seen + window.lost.get(kind, 0):
             raise AssertionError(f"{label}: {counts.get(kind, 0)} {kind} "
                                  f"nodes decoded, the profiler recorded "
                                  f"{dict(copies)}")
@@ -1063,7 +1099,8 @@ def held_to_graph(label: str, step, cs) -> Dict[str, int]:
     sizes = collections.Counter(e.result_bytes for e in cs.graph_stream.entries
                                 if e.opcode in ("memcpy", "memset"))
     log(f"{label}: {cs.n_ops} nodes {counts}, {cs.command_bytes} B; kernel "
-        f"nodes equal the profiler's {sum(profiled.values())} records by "
+        f"nodes equal the profiler's {sum(profiled.values())} records (and "
+        f"{sum(lost.values())} the tracer lost) by "
         f"function ({'and by full name' if same_names else 'not all by full name'}) "
         f"and the counted launches {dict(step.launches)}; copy and fill nodes "
         f"(bytes: count) {dict(sizes)} equal the profiler's {dict(copies)}; "
@@ -1174,6 +1211,11 @@ def profiled_counts(rows, names: Tuple[str, ...]) -> Dict[str, Dict[str, int]]:
                    for sym in KERNEL_SYMBOLS[name]} for name in names}
 
 
+def lost_of(sym: str, lost: "collections.Counter[str]") -> int:
+    """The records of kernel ``sym`` the tracer lost under graph launches."""
+    return sum(c for k, c in lost.items() if of_symbol(sym, k))
+
+
 def of_symbol(sym: str, key: str) -> bool:
     """Whether a profiler row is one of this repo's kernels named ``sym``
     (they live at namespace scope or in an anonymous namespace; a library's
@@ -1201,9 +1243,9 @@ def serve_main_path(path: ServePath, cfg: ModelConfig, params,
             serve: Dict[str, Any] = {}
             reset_launches()
             if replay:
-                rows, _ = _profile(
+                window = _profile(
                     lambda: serve.update(metrics=srv.serve(reqs)),
-                    warmup=False)
+                    warmup=False, label=f"{cfg.name} serve T={T} replay")
             else:
                 serve["metrics"] = srv.serve(reqs)
             serve["counts"] = dict(launches)
@@ -1211,14 +1253,16 @@ def serve_main_path(path: ServePath, cfg: ModelConfig, params,
             serves.append(serve)
             log(f"{cfg.name} serve T={T} ({'replay' if replay else 'capture'})"
                 f": {serve['metrics']} kernel launches {serve['counts']}")
-        prof = profiled_counts(rows, path.kernels)
+        prof = profiled_counts(window.rows, path.kernels)
         log(f"{cfg.name} serve T={T} replay: torch.profiler counts {prof}")
         for name, by_sym in prof.items():
             want = serves[1]["counts"].get(name, 0)
-            if any(n != want for n in by_sym.values()):
+            if any(n + lost_of(sym, window.lost) != want
+                   for sym, n in by_sym.items()):
                 raise AssertionError(f"{cfg.name} T={T}: {want} counted "
                                      f"{name} launches, the profiler saw "
-                                     f"{by_sym}")
+                                     f"{by_sym} and the tracer lost "
+                                     f"{dict(window.lost)}")
         for label, g in srv.graphs().items():
             nbytes, nodes = g.footprint()
             log(f"{cfg.name} T={T} graph {label}: {nodes} nodes a replay, "
@@ -1342,18 +1386,74 @@ def compare_routes(path: ServePath, cfg: ModelConfig, params,
 
 
 # ---------------------------------------------------------------- phase 7
+def _cupti() -> Optional[ctypes.CDLL]:
+    """The libcupti that torch.profiler loaded in this process, or None."""
+    with open("/proc/self/maps") as maps:
+        paths = sorted({line.split()[-1] for line in maps if "libcupti" in line})
+    return ctypes.CDLL(paths[0]) if paths else None
+
+
+def cupti_dropped() -> Optional[int]:
+    """CUPTI's count of the activity records it dropped for want of buffer
+    space since the last read, which resets it: read from the libcupti that
+    torch.profiler uses in this process; None where none is loaded."""
+    lib = _cupti()
+    if lib is None:
+        return None
+    n = ctypes.c_size_t()
+    err = lib.cuptiActivityGetNumDroppedRecords(None, ctypes.c_uint32(0),
+                                                ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuptiActivityGetNumDroppedRecords: error {err}")
+    return n.value
+
+
+def cupti_flush() -> None:
+    """``cuptiActivityFlushAll(CUPTI_ACTIVITY_FLAG_FLUSH_FORCED)``: hand every
+    activity buffer, the incomplete ones too, to the profiler now, before
+    its window closes."""
+    lib = _cupti()
+    if lib is not None:
+        err = lib.cuptiActivityFlushAll(ctypes.c_uint32(1))
+        if err:
+            raise RuntimeError(f"cuptiActivityFlushAll: error {err}")
+
+
+def _logged_replay(graph, order: List[Any]) -> None:
+    order.append(graph)
+    _REPLAY(graph)
+
+
+_REPLAY = torch.cuda.CUDAGraph.replay
+
+
+@contextlib.contextmanager
+def graph_replays_logged(order: List[Any]) -> Iterator[None]:
+    """Every ``torch.cuda.CUDAGraph`` replayed in the block appended to
+    ``order``, in launch order."""
+    torch.cuda.CUDAGraph.replay = lambda g: _logged_replay(g, order)
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph.replay = _REPLAY
+
+
 def _window(fn: Callable[[], Any], reps: int = 1):
-    """torch.profiler over ``reps`` calls of ``fn``, and the host wall time
-    of the calls in us.
+    """torch.profiler over ``reps`` calls of ``fn``, the graphs the calls
+    replayed (``graph_replays_logged``), CUPTI's dropped-record count over
+    the window, and the host wall time of the calls in us.
 
     Every window opens with ``SENTINELS`` spin kernels: the tracer drops the
     first kernel records of a window, none early in a process and more the
     more records the process has traced (``scripts/profiler_record_loss.py``;
     later in this script, the first norm of a graph that begins with the
     embedding and its scale, in every window), and CUPTI's dropped-record
-    count does not see it.  The sentinels take that loss."""
+    count does not see it.  The sentinels take that loss.  Before the window
+    closes, every CUPTI buffer is flushed (``cupti_flush``)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    order: List[Any] = []
+    cupti_dropped()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         # margins inside the trace window, outside the timed one: the tracer
         # drops device records whose converted timestamps fall outside it
@@ -1362,48 +1462,168 @@ def _window(fn: Callable[[], Any], reps: int = 1):
             torch.cuda._sleep(1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+        with graph_replays_logged(order):
+            for _ in range(reps):
+                fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        cupti_flush()
         time.sleep(PROFILE_MARGIN_S)
-    return prof, wall_us
+    return prof, order, cupti_dropped(), wall_us
 
 
-def _profile(fn: Callable[[], Any], reps: int = 1, warmup: bool = True):
-    """Kernel rows of torch.profiler over ``reps`` calls of ``fn``
-    (``_window``), the sentinels left out, and the host wall time in us.
-    Raises unless a sentinel is left and the profiler's count of every
-    counted kernel launched in the window equals the launches counted
-    there (``held_to_counts``)."""
+# a kernel launch of the runtime API (every kernel of this repository goes
+# through it) and a graph launch; a library's kernel launched through the
+# driver API is not held launch by launch, only counted by name
+KERNEL_LAUNCH = re.compile(r"^cudaLaunch(Kernel|CooperativeKernel)")
+GRAPH_LAUNCH = re.compile(r"^cu(da)?GraphLaunch")
+EAGER_LOSS = "<eager launch>"    # a kernel lost under an eager launch
+
+
+def record_kind(name: str) -> str:
+    """A device record's kind: ``memcpy``/``memset`` for a copy or fill
+    (``DRIVER_COPY``), else its kernel's function (``kernel_base``)."""
+    m = DRIVER_COPY.match(name)
+    return (m.group(1) or m.group(2)).lower() if m else kernel_base(name)
+
+
+def graph_nodes(graph) -> "collections.Counter[str]":
+    """The records one replay of ``graph`` must leave: its decoded kernel
+    nodes by function, its copy and fill nodes by kind."""
+    out: "collections.Counter[str]" = collections.Counter()
+    for e in decode_graph(graph).entries:
+        if e.opcode == "kernel":
+            out[kernel_base(e.op_path)] += 1
+        elif e.opcode in ("memcpy", "memset"):
+            out[e.opcode] += 1
+    return out
+
+
+def launch_loss(prof, order: List[Any], label: str,
+                nodes: Optional[Dict[int, "collections.Counter[str]"]] = None
+                ) -> Tuple["collections.Counter[str]", List[int]]:
+    """Match the window's device records to their launches by correlation
+    id: each graph launch (the replays in ``order``) to its graph's nodes
+    (``graph_nodes``, or ``nodes`` by the graph's id), each eager kernel
+    launch after the sentinels to one record.  Records beyond a launch's
+    nodes, an eager launch with more than one record, or graph launches
+    that are not the logged replays raise.  Returns the records missing
+    under the launches (an eager launch's as ``EAGER_LOSS``: its kernel is
+    not named) and the positions of the graph launches short of records."""
+    events = list(prof.profiler.kineto_results.events())
+    under: Dict[int, "collections.Counter[str]"] = collections.defaultdict(
+        collections.Counter)
+    for e in events:
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            under[e.correlation_id()][record_kind(e.name())] += 1
+    host = sorted((e for e in events
+                   if e.device_type() != torch.autograd.DeviceType.CUDA),
+                  key=lambda e: e.start_ns())
+    graphs = [e.correlation_id() for e in host if GRAPH_LAUNCH.match(e.name())]
+    eager = [e.correlation_id() for e in host
+             if KERNEL_LAUNCH.match(e.name())][SENTINELS:]
+    if len(graphs) != len(order):
+        raise AssertionError(f"{label}: {len(order)} graph replays, the "
+                             f"profiler recorded {len(graphs)} graph launches")
+    nodes = {} if nodes is None else dict(nodes)
+    lost: "collections.Counter[str]" = collections.Counter()
+    short = []
+    for i, (g, corr) in enumerate(zip(order, graphs)):
+        if id(g) not in nodes:
+            nodes[id(g)] = graph_nodes(g)
+        got, want = under[corr], nodes[id(g)]
+        if got - want:
+            raise AssertionError(f"{label}: graph launch {i} recorded "
+                                 f"{dict(got - want)} beyond its graph's "
+                                 f"nodes")
+        if want - got:
+            lost += want - got
+            short.append(i)
+    for corr in eager:
+        n = sum(under[corr].values())
+        if n > 1:
+            raise AssertionError(f"{label}: one eager launch recorded "
+                                 f"{dict(under[corr])}")
+        lost[EAGER_LOSS] += 1 - n
+    return +lost, short
+
+
+def report_loss(label: str, lost, short: List[int], n_graphs: int,
+                dropped: Optional[int]) -> None:
+    if lost or dropped:
+        log(f"{label}: tracer loss: {sum(lost.values())} device records "
+            f"missing under {len(short)} of {n_graphs} graph launches "
+            f"(launches {short[:8]}) and {lost.get(EAGER_LOSS, 0)} eager "
+            f"launches, {dict(lost.most_common(4))}; CUPTI's dropped-record "
+            f"count over the window {dropped}")
+
+
+@dataclasses.dataclass
+class Window:
+    """One held profiler window: the kernel rows (sentinels left out), the
+    host wall time, and the records the tracer lost under the launches."""
+    rows: List[Any]
+    wall_us: float
+    lost: "collections.Counter[str]"
+
+
+def _profile(fn: Callable[[], Any], reps: int = 1, warmup: bool = True,
+             label: str = "profiler window", retakes: int = 0) -> Window:
+    """torch.profiler over ``reps`` calls of ``fn`` (``_window``), held to
+    what ran: the profiler's records matched to their launches
+    (``launch_loss``), and its count of every counted kernel to the launches
+    counted in the window (``held_to_counts``).  A record missing under a
+    launch is the tracer's loss: it prints as a ``tracer loss`` line, and
+    the window is taken again up to ``retakes`` times, then raises if
+    ``retakes`` is set.  Any other mismatch raises.  Raises unless a
+    sentinel is left."""
     if warmup:
         fn()
-    before = collections.Counter(launches)
-    prof, wall_us = _window(fn, reps)
-    counted = collections.Counter(launches)
-    counted.subtract(before)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not any(SENTINEL in e.key for e in rows):
-        raise RuntimeError(f"torch.profiler recorded no {SENTINEL} of the "
-                           f"window's {SENTINELS} sentinels")
-    rows = [e for e in rows if SENTINEL not in e.key]
-    held_to_counts(rows, +counted)
-    return rows, wall_us
+    for attempt in range(retakes + 1):
+        before = collections.Counter(launches)
+        prof, order, dropped, wall_us = _window(fn, reps)
+        counted = collections.Counter(launches)
+        counted.subtract(before)
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not any(SENTINEL in e.key for e in rows):
+            raise RuntimeError(f"torch.profiler recorded no {SENTINEL} of the "
+                               f"window's {SENTINELS} sentinels")
+        rows = [e for e in rows if SENTINEL not in e.key]
+        lost, short = launch_loss(prof, order, label)
+        held_to_counts(rows, +counted, lost, label)
+        report_loss(label, lost, short, len(order), dropped)
+        if not lost:
+            break
+    else:
+        if retakes:
+            raise RuntimeError(f"{label}: the tracer lost records in "
+                               f"{retakes + 1} windows in a row")
+    return Window(rows, wall_us, lost)
 
 
-def held_to_counts(rows, counted: Dict[str, int]) -> None:
+def held_to_counts(rows, counted: Dict[str, int],
+                   lost: "collections.Counter[str]", label: str) -> None:
     """Every kernel symbol of a counted name (``KERNEL_SYMBOLS``) recorded
-    once per counted launch; the SSD scan's state and state-passing kernels
-    at most once (a one-chunk call runs neither)."""
+    once per counted launch, less the records the tracer lost: those of
+    its symbol under a graph launch, and, up to their number, those under
+    eager launches (whose kernel is not named); the SSD scan's state and
+    state-passing kernels at most once (a one-chunk call runs neither)."""
+    eager_budget = lost.get(EAGER_LOSS, 0)
     for name, syms in KERNEL_SYMBOLS.items():
         n = counted.get(name, 0)
         for sym in syms:
             seen = sum(e.count for e in rows if of_symbol(sym, e.key))
-            if seen > n or (seen < n and sym not in MULTI_CHUNK_ONLY):
-                raise RuntimeError(f"torch.profiler recorded {seen} {sym} "
-                                   f"for {n} counted {name} launches in the "
-                                   f"window")
+            missing = sum(c for k, c in lost.items() if of_symbol(sym, k))
+            gap = n - seen - missing
+            if sym in MULTI_CHUNK_ONLY:
+                gap = min(gap, 0)
+            if seen > n or gap < 0 or gap > eager_budget:
+                raise RuntimeError(
+                    f"{label}: torch.profiler recorded {seen} {sym} for {n} "
+                    f"counted {name} launches, {missing} lost under graph "
+                    f"launches and {eager_budget} eager launches lost")
+            eager_budget -= gap
 
 
 def device_ms(fn: Callable[[], Any], reps: int = 20) -> float:
@@ -1417,9 +1637,12 @@ def device_ms_by_kernel(fn: Callable[[], Any], reps: int = 20
 
     The kernels of one call are counted in a window of their own; the timed
     window of ``reps`` calls must record ``reps`` times as many of each, or
-    a record went missing and the time would read low."""
-    one, _ = _profile(fn)
-    rows, _ = _profile(fn, reps, warmup=False)
+    a record went missing and the time would read low.  A window whose
+    records the tracer lost is taken again, up to 3 times, then raises: no
+    time is read from it."""
+    one = _profile(fn, label="device_ms one call", retakes=3).rows
+    rows = _profile(fn, reps, warmup=False, label=f"device_ms {reps} calls",
+                    retakes=3).rows
     if not rows:
         raise RuntimeError("torch.profiler recorded no kernel on the card")
     want = {e.key: reps * e.count for e in one}
@@ -1435,8 +1658,10 @@ def profile_window(fn: Callable[[], Any], label: str, top: int = 8,
     """Device time by kernel over one call of ``fn``, the device's busy share
     of the window's wall time (one stream: kernels do not overlap), and the
     share of device time taken by each kernel named in ``kernels``.
-    Returns the busy share."""
-    rows, wall_us = _profile(fn)
+    Returns the busy share.  A window the tracer lost records of is taken
+    again (``_profile``'s retakes)."""
+    w = _profile(fn, label=label, retakes=3)
+    rows, wall_us = w.rows, w.wall_us
     busy_us = sum(e.self_device_time_total for e in rows)
     log(f"{label}: wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f}"
         f" ms ({busy_us / wall_us:.1%}), {sum(e.count for e in rows)} kernel "
@@ -1691,14 +1916,14 @@ def c1_runs(card: str, arch: str, cfg: ModelConfig, params,
         counts = dict(launches)
         loadtest_line(card, cfg.name, T, "bench_loadtest", m, eng, decode)
         reset_launches()
-        rows, _ = _profile(lambda: replay(
+        window = _profile(lambda: replay(
             eng, generate(TrafficSpec(**C1_SPEC), cfg.vocab_size), realtime=False),
-            warmup=False)
+            warmup=False, label=f"{cfg.name} C1 T={T} profiled replay")
         if dict(launches) != counts:
             raise AssertionError(f"{cfg.name} C1 T={T}: the profiled replay "
                                  f"counted {dict(launches)}, the measured "
                                  f"one {counts}")
-        prof = profiled_counts(rows, kernels)
+        prof = profiled_counts(window.rows, kernels)
         log(f"{cfg.name} C1 T={T} measured replay: kernel launches {counts},"
             f" torch.profiler over the same traffic replayed again {prof}; "
             f"kv {m['kv']}")
@@ -1720,11 +1945,13 @@ def c1_runs(card: str, arch: str, cfg: ModelConfig, params,
                                  f"{prefill_graphs}")
         for name, by_sym in prof.items():
             n = counts.get(name, 0)
-            if n < 1 or any(c != (0 if sym in MULTI_CHUNK_ONLY else n)
+            if n < 1 or any(c + lost_of(sym, window.lost) != (
+                    0 if sym in MULTI_CHUNK_ONLY else n)
                             for sym, c in by_sym.items()):
                 raise AssertionError(f"{cfg.name} C1 T={T}: {n} counted "
                                      f"{name} launches, the profiler saw "
-                                     f"{by_sym}")
+                                     f"{by_sym} and the tracer lost "
+                                     f"{dict(window.lost)}")
         if T == 1:
             t1_counts = counts
             check_against_oneshot(cfg, params, tickets, 4, C1_ENGINE[
@@ -1967,42 +2194,6 @@ def measured_replay(eng: ContinuousBatchingServer, spec: Dict[str, Any],
     return tickets, m, counts, kv, ev0, db0
 
 
-def cupti_dropped() -> Optional[int]:
-    """CUPTI's count of the activity records it dropped for want of buffer
-    space since the last read, which resets it: read from the libcupti that
-    torch.profiler uses in this process; None where none is loaded."""
-    with open("/proc/self/maps") as maps:
-        paths = sorted({line.split()[-1] for line in maps if "libcupti" in line})
-    if not paths:
-        return None
-    n = ctypes.c_size_t()
-    err = ctypes.CDLL(paths[0]).cuptiActivityGetNumDroppedRecords(
-        None, ctypes.c_uint32(0), ctypes.byref(n))
-    if err:
-        raise RuntimeError(f"cuptiActivityGetNumDroppedRecords: error {err}")
-    return n.value
-
-
-def _logged_replay(replay: Callable[[], None], key: str, order: List[str]
-                   ) -> None:
-    order.append(key)
-    replay()
-
-
-@contextlib.contextmanager
-def replays_logged(steps: Dict[str, Any], order: List[str]) -> Iterator[None]:
-    """Each replay of ``steps``' graphs appended to ``order`` by key, in
-    launch order."""
-    graphs = [(key, step.graph) for key, step in steps.items()]
-    for key, g in graphs:
-        g.replay = functools.partial(_logged_replay, g.replay, key, order)
-    try:
-        yield
-    finally:
-        for _, g in graphs:
-            del g.replay
-
-
 def held_to_profiler(eng: ContinuousBatchingServer, spec: Dict[str, Any],
                      label: str, measured: Optional[Dict[str, int]] = None
                      ) -> Tuple[Dict[str, int], Dict[str, Any]]:
@@ -2021,62 +2212,36 @@ def held_to_profiler(eng: ContinuousBatchingServer, spec: Dict[str, Any],
     its graph): it is reported with CUPTI's dropped-record count over the
     window.  Returns the counted launches and the profiler's counts."""
     steps = eng.graphs()
-    nodes = {key: decoded_kernels(decode_graph(step.graph))
-             for key, step in steps.items()}
+    nodes = {id(step.graph): graph_nodes(step.graph)
+             for step in steps.values()}
+    names = {id(step.graph): key for key, step in steps.items()}
     before = graph_objects(eng)
-    order: List[str] = []
     fresh_cursor(eng)
     reset_launches()
-    cupti_dropped()
-    with replays_logged(steps, order):
-        prof, _ = _window(lambda: replay(eng, prefixed(
-            spec, eng.cfg.vocab_size, 1002), realtime=False))
-    dropped = cupti_dropped()
+    prof, order, dropped, _ = _window(lambda: replay(eng, prefixed(
+        spec, eng.cfg.vocab_size, 1002), realtime=False))
     counts = dict(launches)
     captured_nothing(eng, before, label)
     if measured is not None and counts != measured:
         raise AssertionError(f"{label}: the profiled replay counted "
                              f"{counts}, the measured one {measured}")
-    replays = collections.Counter(order)
+    replays = collections.Counter(id(g) for g in order)
     for name in C_KERNELS[GEMMA.arch]:
         for sym in KERNEL_SYMBOLS[name]:
-            want = sum(n * sum(c for k, c in nodes[key].items()
+            want = sum(n * sum(c for k, c in nodes[g].items()
                                if of_symbol(sym, k))
-                       for key, n in replays.items())
+                       for g, n in replays.items())
             if counts.get(name, 0) != want:
                 raise AssertionError(
                     f"{label}: {counts.get(name, 0)} counted {name} "
                     f"launches, {want} {sym} nodes in the graphs replayed "
-                    f"({dict(replays)})")
+                    f"({ {names[g]: n for g, n in replays.items()} })")
     if not counts.get("rms_norm"):
         raise AssertionError(f"{label}: no rms_norm launch counted")
-
-    events = list(prof.profiler.kineto_results.events())
-    graph_launches = [e.correlation_id() for e in sorted(
-        (e for e in events if e.name() == "cudaGraphLaunch"),
-        key=lambda e: e.start_ns())]
-    if len(graph_launches) != len(order):
-        raise AssertionError(f"{label}: {len(order)} replays, the profiler "
-                             f"recorded {len(graph_launches)} graph launches")
-    under: Dict[int, "collections.Counter[str]"] = collections.defaultdict(
-        collections.Counter)
-    kernels = [e for e in events
-               if e.device_type() == torch.autograd.DeviceType.CUDA
-               and not DRIVER_COPY.match(e.name())]
-    for e in kernels:
-        under[e.correlation_id()][kernel_base(e.name())] += 1
-    lost: "collections.Counter[str]" = collections.Counter()
-    short = []
-    for i, (key, corr) in enumerate(zip(order, graph_launches)):
-        got = under[corr]
-        if got - nodes[key]:
-            raise AssertionError(f"{label}: replay {i} of {key} recorded "
-                                 f"{dict(got - nodes[key])} beyond its "
-                                 f"graph's nodes")
-        if nodes[key] - got:
-            lost += nodes[key] - got
-            short.append(i)
-    prof_counts = {name: {sym: sum(of_symbol(sym, e.name()) for e in kernels)
+    lost, short = launch_loss(prof, order, label, nodes)
+    kernels = [e.name() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    prof_counts = {name: {sym: sum(of_symbol(sym, k) for k in kernels)
                           for sym in KERNEL_SYMBOLS[name]}
                    for name in C_KERNELS[GEMMA.arch]}
     for name, by_sym in prof_counts.items():
@@ -2087,11 +2252,7 @@ def held_to_profiler(eng: ContinuousBatchingServer, spec: Dict[str, Any],
                     f"{label}: {counts.get(name, 0)} counted {name} launches,"
                     f" the profiler saw {seen} {sym} and lost {missing} under"
                     f" the graph launches")
-    if short or dropped:
-        log(f"{label}: tracer loss: {sum(lost.values())} kernel records "
-            f"missing under {len(short)} of {len(order)} graph launches "
-            f"(replays {short[:8]}), {dict(lost.most_common(4))}; CUPTI's "
-            f"dropped-record count over the window {dropped}")
+    report_loss(label, lost, short, len(order), dropped)
     return counts, prof_counts
 
 
@@ -2339,6 +2500,188 @@ def kv_path(card: str, device: torch.device) -> Dict[str, Dict[str, int]]:
     return counts
 
 
+# ---------------------------------------------------------------- phase T
+# the defaults of launch/train.py (--seq 256 --batch 8)
+T_SHAPE = ShapeConfig("train", 256, 8, "train")
+T1_RUNS = ((1, 6), (4, 2))       # gemma-2b: (K, launches)
+T1_EAGER_STEPS = 8               # the uncaptured control, from the same start
+T1_MAMBA = ((1, 4),)
+# captured against eager losses, step by step: the two runs are the same
+# kernels on the same data, apart from the order of atomic adds (the
+# embedding's gradient); one bf16 step relative (2^-8) bounds them
+T_LOSS_RTOL = 2.0 ** -8
+# benchmarks/bench_submission.py's _multistep_economy
+T2_ARCH, T2_SHAPE = "deepseek-7b", ShapeConfig("bench", 64, 4, "train")
+T2_KS, T2_STEPS = (1, 4, 16), 16
+T2_RTOL = 1e-3                   # tests/test_runtime_integration.py
+
+
+@contextlib.contextmanager
+def replays_timed(graph, events: List[Tuple[Any, Any]]) -> Iterator[None]:
+    """Each replay of ``graph`` in the block between two CUDA events on the
+    current stream, appended to ``events``."""
+    def timed() -> None:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        _REPLAY(graph)
+        b.record()
+        events.append((a, b))
+    graph.replay = timed
+    try:
+        yield
+    finally:
+        del graph.replay
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def held_losses(label: str, got: List[float], want: List[float],
+                rtol: float) -> float:
+    """The losses of two runs equal step by step within ``rtol``, finite;
+    returns the largest relative difference."""
+    if len(got) > len(want) or not all(map(math.isfinite, got + want)):
+        raise AssertionError(f"{label}: losses {got} against {want}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if rel > rtol:
+        raise AssertionError(f"{label}: losses {got} differ from {want} by "
+                             f"{rel:.2e} relative, above {rtol:.2e}")
+    return rel
+
+
+def train_eager(cfg: ModelConfig, steps: int, device: torch.device
+                ) -> List[float]:
+    """The uncaptured control: ``steps`` eager train steps from the seeded
+    start."""
+    tr = Trainer(cfg, T_SHAPE, steps_per_launch=1, seed=0, device=device)
+    tr.train(steps, eager=True)
+    losses = tr.losses
+    del tr
+    free()
+    return losses
+
+
+def train_captured(card: str, cfg: ModelConfig, K: int, n_launch: int,
+                   device: torch.device, eager: List[float]
+                   ) -> Tuple[Trainer, float]:
+    """``n_launch`` launches of K steps, every launch one graph replay but
+    the first (the capture's eager warm-up), held to the eager control's
+    losses; prints the run's line.  The step's op stream is recorded
+    (``record_captures``) at K = 1.  Returns the trainer and the step's
+    time in ms."""
+    label = f"{card} | train {cfg.name} K={K} B={T_SHAPE.global_batch} " \
+            f"S={T_SHAPE.seq_len}"
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, T_SHAPE, steps_per_launch=K, seed=0, device=device)
+    reset_launches()
+    t0 = time.perf_counter()
+    with record_captures() if K == 1 else contextlib.nullcontext():
+        tr.train(K)
+    capture_s = time.perf_counter() - t0
+    step = tr.graphs()[f"train K={K}"]
+    events: List[Tuple[Any, Any]] = []
+    t1 = time.perf_counter()
+    with replays_timed(step.graph, events):
+        tr.train(K * n_launch)
+    wall = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    if dict(launches):
+        raise AssertionError(f"{label}: the train path launched port "
+                             f"kernels {dict(launches)}")
+    if tr.tracker.count != n_launch or len(events) != n_launch - 1:
+        raise AssertionError(f"{label}: {tr.tracker.count} doorbells, "
+                             f"{len(events)} replays for {n_launch} launches")
+    rel = held_losses(label, tr.losses, eager, T_LOSS_RTOL)
+    step_ms = float(np.median([a.elapsed_time(b) for a, b in events])) / K
+    tokens = T_SHAPE.global_batch * T_SHAPE.seq_len * K * (n_launch - 1)
+    nbytes, nodes = step.footprint()
+    log(f"{label}: step {step_ms:.3f} ms (replay, CUDA events), "
+        f"{tokens / wall:.0f} tokens/s, loss {tr.losses[0]:.5f} -> "
+        f"{tr.losses[-1]:.5f} (eager's within {rel:.1e}), doorbells "
+        f"{tr.tracker.count} for {tr.step} steps, graph nodes {nodes}, "
+        f"footprint {nbytes} B, capture {capture_s:.2f} s (capture+upload "
+        f"{step.upload_s:.2f} s), pool {(step.pool_bytes or 0) / 2**30:.2f} "
+        f"GiB, peak {peak_gib():.2f} GiB")
+    return tr, step_ms
+
+
+def train_graph(card: str, tr: Trainer, step_ms: float) -> None:
+    """T3: the K=1 train graph decoded at commit and held to the
+    profiler's records over one replay (``held_to_graph``); its node types,
+    top kernels, the step's op-level FLOPs and bytes and its roofline
+    beside the measured replay."""
+    name = f"{tr.cfg.name} train K=1"
+    step = tr.graphs()["train K=1"]
+    cs = CommandStreamCapture().capture_compiled(name, step)
+    counts = held_to_graph(f"{card} | {name}", step, cs)
+    n_params = sum(x.numel() for x in _leaves(tr.params))
+    tokens = T_SHAPE.global_batch * T_SHAPE.seq_len
+    rep = analyze(cs, chips=1, model_flops_total=6 * n_params * tokens,
+                  name=name)
+    bound_ms = rep.step_time_s * 1e3
+    log(f"{card} | {name} graph: {counts}; op-level stream "
+        f"{cs.stream.n_ops} entries, {rep.flops_per_device / 1e12:.3f} "
+        f"TFLOP, {rep.hbm_bytes_per_device / 1e9:.2f} GB; roofline compute "
+        f"{rep.compute_s * 1e3:.3f} ms, memory {rep.memory_s * 1e3:.3f} ms, "
+        f"bound {bound_ms:.3f} ms ({rep.bottleneck}); measured replay "
+        f"{step_ms:.3f} ms: {bound_ms / step_ms:.1%} of the roofline; "
+        f"model/stream FLOPs {rep.model_flops_ratio:.3f}")
+    print(render_roofline_row(rep), flush=True)
+
+
+def train_economy(card: str, device: torch.device) -> None:
+    """T2: bench_submission's _multistep_economy on the card: deepseek-7b's
+    smoke config, K = 1, 4, 16 over 16 steps from seed 0 (its first launch
+    the capture's eager warm-up, as the reference's first includes its
+    compile), then 16 steps more, every launch a replay."""
+    cfg = SMOKE_ARCHS[T2_ARCH]
+    losses: Dict[int, List[float]] = {}
+    for K in T2_KS:
+        tr = Trainer(cfg, T2_SHAPE, steps_per_launch=K, seed=0, device=device)
+        out = tr.train(T2_STEPS)
+        steady = tr.train(2 * T2_STEPS)
+        nbytes, nodes = tr.graphs()[f"train K={K}"].footprint()
+        losses[K] = tr.losses
+        log(f"{card} | train_economy {cfg.name} K={K}: "
+            f"{out['wall_s'] / T2_STEPS * 1e6:.1f} host us/step (capture "
+            f"included), {steady['wall_s'] / T2_STEPS * 1e6:.1f} the next "
+            f"{T2_STEPS}; doorbells {out['doorbells']}, steps/doorbell "
+            f"{out['steps_per_doorbell']:.1f}, final loss "
+            f"{out['final_loss']:.5f}, graph nodes {nodes}, footprint "
+            f"{nbytes} B")
+        for o in (out, steady):
+            if o["doorbells"] != T2_STEPS // K or o["steps"] % T2_STEPS:
+                raise AssertionError(f"train_economy K={K}: {o}")
+        del tr
+    held_losses(f"train_economy K=4 against K=1", losses[4], losses[1],
+                T2_RTOL)
+
+
+def train_path(card: str, device: torch.device) -> None:
+    """Phase T: training on the train route (``impl="ref"``, no port
+    kernel), every launch one CUDA Graph replay."""
+    free()
+    for arch, runs in (("gemma-2b", T1_RUNS), ("mamba2-780m", T1_MAMBA)):
+        cfg = ARCHS[arch]
+        log(f"phase T1: train {cfg.name}, {T_SHAPE}, remat {cfg.remat}")
+        eager = train_eager(cfg, max(K * n for K, n in runs), device)
+        log(f"{card} | train {cfg.name} eager control: losses {eager}")
+        for K, n_launch in runs:
+            tr, step_ms = train_captured(card, cfg, K, n_launch, device,
+                                         eager)
+            if K == 1 and arch == "gemma-2b":
+                log("phase T3: the train graph decoded and held to the "
+                    "profiler")
+                train_graph(card, tr, step_ms)
+            del tr
+            free()
+    log("phase T2: bench_submission's _multistep_economy")
+    train_economy(card, device)
+    free()
+
+
 # ---------------------------------------------------------------- kernels
 def roofline(cost: KernelCost) -> Dict[str, Any]:
     """Bound of bf16 work on one H100 SXM (NVIDIA's published peaks): the
@@ -2482,6 +2825,9 @@ def main() -> int:
 
     log("phase K: chunked prefill and the paged KV backend, gemma-2b")
     k_counts = kv_path(card, device)
+
+    log("phase T: training, every launch one CUDA Graph replay")
+    train_path(card, device)
 
     log("kernels at their paths' shapes")
     kernels = [rms_entry(device), flash_entry(device), ssd_entry(device)]

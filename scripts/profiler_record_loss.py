@@ -14,8 +14,13 @@ of 64 such kernels.  For each small window it prints which eager launches
 nodes) lost device records, matched through the correlation ids of the
 ``cudaLaunchKernel`` / ``cudaGraphLaunch`` records, and CUPTI's
 dropped-record count over the window (``cuptiActivityGetNumDroppedRecords``
-on the libcupti the profiler loaded, reset just before it).  The first line
-is the card's name and power limit.  Needs one CUDA card.
+on the libcupti the profiler loaded, reset just before it).  Each round then
+opens two tail windows, 83 replays of the 500-node graph behind the 64
+eager spin kernels (about 41,500 records, the size of a serving window),
+without and with a forced ``cuptiActivityFlushAll`` just before the window
+closes, and prints the same for them: whether the forced flush saves
+records the tracer would lose at a window's end.  The first line is the
+card's name and power limit.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -30,13 +35,18 @@ ROUNDS = 3
 SMALL_REPLAYS = 20
 SENTINELS = 64
 MARGIN_S = 0.05
+TAIL_REPLAYS = 83
+
+
+def cupti() -> ctypes.CDLL:
+    with open("/proc/self/maps") as maps:
+        paths = sorted({line.split()[-1] for line in maps if "libcupti" in line})
+    return ctypes.CDLL(paths[0])
 
 
 def cupti_dropped() -> int:
-    with open("/proc/self/maps") as maps:
-        paths = sorted({line.split()[-1] for line in maps if "libcupti" in line})
     n = ctypes.c_size_t()
-    err = ctypes.CDLL(paths[0]).cuptiActivityGetNumDroppedRecords(
+    err = cupti().cuptiActivityGetNumDroppedRecords(
         None, ctypes.c_uint32(0), ctypes.byref(n))
     if err:
         raise RuntimeError(f"cuptiActivityGetNumDroppedRecords: error {err}")
@@ -57,7 +67,8 @@ def captured(n: int, fn) -> torch.cuda.CUDAGraph:
 
 
 def window(label: str, body: torch.cuda.CUDAGraph, eager: int = 0,
-           lead: torch.cuda.CUDAGraph = None) -> None:
+           lead: torch.cuda.CUDAGraph = None, replays: int = SMALL_REPLAYS,
+           body_nodes: int = 50, flush: bool = False) -> None:
     torch.cuda.synchronize()
     cupti_dropped()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
@@ -66,9 +77,13 @@ def window(label: str, body: torch.cuda.CUDAGraph, eager: int = 0,
             torch.cuda._sleep(1)
         if lead is not None:
             lead.replay()
-        for _ in range(SMALL_REPLAYS):
+        for _ in range(replays):
             body.replay()
         torch.cuda.synchronize()
+        if flush:           # CUPTI_ACTIVITY_FLAG_FLUSH_FORCED
+            err = cupti().cuptiActivityFlushAll(ctypes.c_uint32(1))
+            if err:
+                raise RuntimeError(f"cuptiActivityFlushAll: error {err}")
         time.sleep(MARGIN_S)
     dropped = cupti_dropped()
     events = list(p.profiler.kineto_results.events())
@@ -82,7 +97,7 @@ def window(label: str, body: torch.cuda.CUDAGraph, eager: int = 0,
             (e for e in events if e.name() == name), key=lambda e: e.start_ns())]
     lost_eager = [i for i, c in enumerate(launched("cudaLaunchKernel"))
                   if c not in records]
-    nodes = ([SENTINELS] if lead is not None else []) + [50] * SMALL_REPLAYS
+    nodes = ([SENTINELS] if lead is not None else []) + [body_nodes] * replays
     short = [(i, records.get(c, 0), n) for i, (c, n) in
              enumerate(zip(launched("cudaGraphLaunch"), nodes))
              if records.get(c, 0) != n]
@@ -110,6 +125,10 @@ def main() -> None:
         window("graph first", small)
         window(f"{SENTINELS} eager spin kernels first", small, eager=SENTINELS)
         window(f"a graph of {SENTINELS} spin kernels first", small, lead=spin)
+        for flush in (False, True):
+            window(f"tail: {TAIL_REPLAYS} replays of 500 nodes, forced flush "
+                   f"{'on' if flush else 'off'}", big, eager=SENTINELS,
+                   replays=TAIL_REPLAYS, body_nodes=500, flush=flush)
 
 
 if __name__ == "__main__":

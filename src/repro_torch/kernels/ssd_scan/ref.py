@@ -120,10 +120,11 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         cum_i = cum[:, i]                                   # [B,Q,H]
         tot_i = cum_i[:, -1, :]                             # [B,H]
         # ---- intra-chunk (quadratic, attention-like) ----
-        # L[q,k] = exp(cum[q]-cum[k]) for q>=k; selected, never multiplied,
-        # so exp overflowing above the diagonal cannot leak a NaN
+        # L[q,k] = exp(cum[q]-cum[k]) for q>=k; above the diagonal the
+        # exponent is -inf, never an overflowing exp that a select would
+        # drop: the backward then multiplies by 0, not by inf (a NaN)
         diff = cum_i[:, :, None, :] - cum_i[:, None, :, :]  # [B,Q,Q,H]
-        L = torch.where(mask, torch.exp(diff), 0.0)
+        L = torch.exp(diff.masked_fill(~mask, float("-inf")))
         CB = torch.einsum("bqn,bkn->bqk", C_i, B_i)
         G = CB[..., None] * L                               # [B,Q,Q,H]
         y_intra = torch.einsum("bqkh,bkhp->bqhp", G * dt_i[:, None, :, :],

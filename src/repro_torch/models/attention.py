@@ -3,11 +3,12 @@ KV-cache decode path.
 
 ``impl`` selects the full-sequence route, as in ``repro.models.attention``:
 ``"cuda"`` is the flash-attention kernel (its wrapper takes the plain version
-for CPU tensors), ``"ref"`` the dense O(S²)-memory softmax.  The reference's
-chunked causal path, which only bounds memory for long training sequences,
-is not ported.  Decode attention, chunk (extend) attention and the paged
-cache's block-table gather and scatter have no kernel in the reference and
-stay plain PyTorch.
+for CPU tensors); ``"ref"`` is the dense O(S²)-memory softmax, or, for a
+causal sequence longer than ``cfg.attn_chunk``, the reference's chunked
+streaming softmax (:func:`chunked_causal_attention`, or
+:func:`triangle_chunked_attention` with ``cfg.attn_tri``).  Decode
+attention, chunk (extend) attention and the paged cache's block-table
+gather and scatter have no kernel in the reference and stay plain PyTorch.
 """
 from __future__ import annotations
 
@@ -17,12 +18,13 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
-from .layers import Params, apply_rope, rms_norm, rotary
+from .layers import Norm, Params, apply_rope, rms_norm, rotary
 
 __all__ = ["attention", "decode_attention", "decode_positions",
            "DecodePositions", "extend_attention", "extend_positions",
            "ExtendPositions", "gather_block_table", "scatter_block_rows",
-           "init_kv_cache", "dense_causal_attention", "IMPLS"]
+           "init_kv_cache", "dense_causal_attention",
+           "chunked_causal_attention", "triangle_chunked_attention", "IMPLS"]
 
 IMPLS = ("cuda", "ref")
 
@@ -51,14 +53,112 @@ def dense_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def _online_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: Optional[torch.Tensor], acc: torch.Tensor,
+                 m: torch.Tensor, l: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One kv chunk of the streaming softmax, the reference's ``kv_body``:
+    q [B,c,H,hd] against k, v [B,c,H,hd]; ``mask`` [c, c] (True: keep)."""
+    s = torch.einsum("bqhd,bkhd->bqhk", q, k).float() * q.shape[-1] ** -0.5
+    if mask is not None:
+        s = s.masked_fill(~mask[None, :, None, :],
+                          torch.finfo(torch.float32).min)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l_new = l * alpha + p.sum(dim=-1)
+    acc_new = acc * alpha[..., None] + torch.einsum(
+        "bqhk,bkhd->bqhd", p.to(v.dtype), v).float()
+    return acc_new, m_new, l_new
+
+
+def _online_init(q: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, c, H, hd = q.shape
+    f32 = torch.float32
+    return (torch.zeros(B, c, H, hd, dtype=f32, device=q.device),
+            torch.full((B, c, H), torch.finfo(f32).min, dtype=f32,
+                       device=q.device),
+            torch.zeros(B, c, H, dtype=f32, device=q.device))
+
+
+def _online_out(acc: torch.Tensor, l: torch.Tensor, dtype: torch.dtype
+                ) -> torch.Tensor:
+    return (acc / torch.clamp(l[..., None], min=1e-30)).to(dtype)
+
+
+def chunked_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, chunk: int = 1024,
+                             causal: bool = True) -> torch.Tensor:
+    """Flash-style streaming softmax over KV chunks: O(S·chunk) memory.
+
+    ``repro.models.attention.chunked_causal_attention``: every (q chunk, kv
+    chunk) pair in order, a future chunk masked whole, so it adds nothing.
+    q, k, v: [B, S, H, hd]; S not a multiple of ``chunk``, or at most one
+    chunk, takes the dense path.
+    """
+    B, S, H, hd = q.shape
+    if S % chunk or S <= chunk:
+        return dense_causal_attention(q, k, v, causal)
+    n = S // chunk
+    pos = torch.arange(chunk, device=q.device)
+    diag = pos[:, None] >= pos[None, :]
+    none = torch.zeros(chunk, chunk, dtype=torch.bool, device=q.device)
+    outs = []
+    for qi in range(n):
+        q_i = q[:, qi * chunk:(qi + 1) * chunk]
+        acc, m, l = _online_init(q_i)
+        for kj in range(n):
+            mask = (None if not causal else
+                    diag if kj == qi else none if kj > qi else None)
+            acc, m, l = _online_step(q_i, k[:, kj * chunk:(kj + 1) * chunk],
+                                     v[:, kj * chunk:(kj + 1) * chunk], mask,
+                                     acc, m, l)
+        outs.append(_online_out(acc, l, q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def triangle_chunked_attention(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, chunk: int = 1024
+                               ) -> torch.Tensor:
+    """Causal chunked attention over only the n(n+1)/2 causal chunk pairs.
+
+    ``repro.models.attention.triangle_chunked_attention`` folds q chunk r
+    with q chunk n-1-r, so that every folded row takes n+1 kv steps; each q
+    chunk still meets kv chunks 0..r in order with the diagonal masked, so
+    the result is :func:`chunked_causal_attention`'s.  An odd or single
+    chunk count, or S not a multiple of ``chunk``, takes that path.
+    """
+    B, S, H, hd = q.shape
+    n = S // chunk
+    if n * chunk != S or n < 2 or n % 2:
+        return chunked_causal_attention(q, k, v, chunk)
+    pos = torch.arange(chunk, device=q.device)
+    diag = pos[:, None] >= pos[None, :]
+    outs: Dict[int, torch.Tensor] = {}
+    for r in range(n // 2):
+        for row in (r, n - 1 - r):          # the folded pair: n+1 kv steps
+            q_i = q[:, row * chunk:(row + 1) * chunk]
+            acc, m, l = _online_init(q_i)
+            for kj in range(row + 1):
+                acc, m, l = _online_step(
+                    q_i, k[:, kj * chunk:(kj + 1) * chunk],
+                    v[:, kj * chunk:(kj + 1) * chunk],
+                    diag if kj == row else None, acc, m, l)
+            outs[row] = _online_out(acc, l, q.dtype)
+    return torch.cat([outs[i] for i in range(n)], dim=1)
+
+
 def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
               positions: Optional[torch.Tensor] = None, causal: bool = True,
-              impl: str = "ref"
+              impl: str = "ref", norm: Norm = rms_norm
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full-sequence attention (prefill). x: [B, S, D].
+    """Full-sequence attention (prefill, train). x: [B, S, D].
 
     Returns ``(out [B, S, D], k, v)``: k and v are [B, S, Hkv, hd] after the
     k-norm and RoPE, the entries a prefill writes into the KV cache.
+    ``norm`` is the q/k norm (the train path passes
+    :func:`~.layers.plain_rms_norm`).
     """
     B, S, D = x.shape
     h, hd = cfg.n_heads_padded, cfg.hd
@@ -66,8 +166,8 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"]).contiguous()
     if cfg.qk_norm:
-        q = rms_norm(p["q_norm"], q)
-        k = rms_norm(p["k_norm"], k)
+        q = norm(p["q_norm"], q)
+        k = norm(p["k_norm"], k)
     if cfg.pos_embed == "rope":
         if positions is None:
             positions = torch.arange(S, device=x.device)[None, :]
@@ -78,8 +178,13 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
         out = flash_attention(q.contiguous(), k.contiguous(), v, causal=causal)
     elif impl == "ref":
         n_rep = h // k.shape[2]
-        out = dense_causal_attention(q, _repeat_kv(k, n_rep),
-                                     _repeat_kv(v, n_rep), causal)
+        kr, vr = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
+        if causal and cfg.attn_chunk and S > cfg.attn_chunk:
+            chunked = (triangle_chunked_attention if cfg.attn_tri else
+                       chunked_causal_attention)
+            out = chunked(q, kr, vr, cfg.attn_chunk)
+        else:
+            out = dense_causal_attention(q, kr, vr, causal)
     else:
         raise ValueError(f"unknown attention impl {impl!r}; expected one of "
                          f"{IMPLS}")

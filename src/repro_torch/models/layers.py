@@ -1,23 +1,29 @@
-"""Shared model layers: norms, rotary embeddings, MLPs, embeddings.
+"""Shared model layers: norms, rotary embeddings, MLPs, embeddings, the
+chunked cross-entropy loss.
 
 Plain functions on tensors; parameters are nested dicts of tensors with the
-reference's structure (``repro.models.layers``).  Every norm goes through the
-RMSNorm kernel's wrapper.
+reference's structure (``repro.models.layers``).  Every norm of the serving
+path goes through the RMSNorm kernel's wrapper; the train path, which
+differentiates through its norms, takes :func:`plain_rms_norm` (the kernels
+have no backward, and the reference trains on its plain route).
 """
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
+                    Union)
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.rms_norm.ops import rms_norm as rms_norm_kernel
+from ..kernels.rms_norm.ref import rms_norm_ref
 
-__all__ = ["Params", "Spec", "map_params", "layer_params", "init_from_specs",
-           "embedding_specs", "rms_norm", "rotary", "apply_rope", "mlp",
-           "embed", "unembed", "greedy", "dtype_of", "silu", "softplus"]
+__all__ = ["Params", "Spec", "map_params", "layer_params", "unbind_layers",
+           "init_from_specs", "embedding_specs", "rms_norm", "plain_rms_norm",
+           "Norm", "rotary", "apply_rope", "mlp", "embed", "unembed",
+           "cross_entropy_loss", "greedy", "dtype_of", "silu", "softplus"]
 
 Params = Dict[str, Any]
 
@@ -56,6 +62,20 @@ def layer_params(layers: Params, i: int) -> Params:
             for k, v in layers.items()}
 
 
+def unbind_layers(layers: Params) -> List[Params]:
+    """Every layer's parameters, one ``torch.unbind`` per stacked leaf.
+
+    Under autograd the backward of one ``unbind`` is one ``stack`` of the
+    layers' gradients: each stacked leaf gets its gradient in a single
+    write, where ``L`` selects (:func:`layer_params`) would each add into a
+    full ``[L, ...]`` zero gradient."""
+    views = map_params(lambda t: torch.unbind(t, 0), layers)
+    leaf = views
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    return [map_params(lambda v: v[i], views) for i in range(len(leaf))]
+
+
 def init_from_specs(specs: Any, dtype: torch.dtype,
                     device: Union[str, torch.device], seed: int) -> Params:
     """Seeded random weights for a spec tree, drawn on ``device``.
@@ -91,6 +111,17 @@ def embedding_specs(cfg: ModelConfig) -> Params:
 def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """fp32 mean of squares, ``(1 + scale)`` gain, cast back to x's type."""
     return rms_norm_kernel(x.contiguous(), p["scale"], eps)
+
+
+def plain_rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6
+                   ) -> torch.Tensor:
+    """:func:`rms_norm` in plain torch ops on every device: the train
+    path's norm, which autograd differentiates."""
+    return rms_norm_ref(x, p["scale"], eps)
+
+
+#: a norm function: :func:`rms_norm` (serving) or :func:`plain_rms_norm`
+Norm = Callable[[Params, torch.Tensor], torch.Tensor]
 
 
 # --------------------------------------------------------------------------
@@ -167,6 +198,38 @@ def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     if "unembed" in p:
         return x @ p["unembed"]
     return x @ p["embed"].T
+
+
+# --------------------------------------------------------------------------
+# chunked cross-entropy loss (never materializes [B, S, V] at once)
+# --------------------------------------------------------------------------
+def cross_entropy_loss(emb_params: Params, x: torch.Tensor,
+                       labels: torch.Tensor, chunk: int = 512,
+                       vocab_valid: Optional[int] = None) -> torch.Tensor:
+    """Mean CE over [B, S] labels given final hidden states x: [B, S, D].
+
+    ``repro.models.layers.cross_entropy_loss``: a loop over sequence chunks
+    of ``chunk`` positions and a remainder chunk, so the fp32 logits of one
+    chunk, [B, chunk, V], are the largest live buffer; padded vocab columns
+    (>= ``vocab_valid``) are masked with the fp32 minimum.
+    """
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    n_chunks = S // chunk
+    bounds = [(i * chunk, (i + 1) * chunk) for i in range(n_chunks)]
+    if S > n_chunks * chunk:
+        bounds.append((n_chunks * chunk, S))
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a, b in bounds:
+        logits = unembed(emb_params, x[:, a:b]).float()
+        V = logits.shape[-1]
+        if vocab_valid is not None and vocab_valid < V:
+            mask = torch.arange(V, device=x.device) >= vocab_valid
+            logits = logits.masked_fill(mask, torch.finfo(torch.float32).min)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, a:b, None].long())[..., 0]
+        total = total + torch.sum(lse - gold)
+    return total / (B * S)
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:

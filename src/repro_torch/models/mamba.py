@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels.ssd_scan.ops import ssd_scan
 from ..kernels.ssd_scan.ref import ssd_chunked
-from .layers import Params, Spec, rms_norm, silu, softplus
+from .layers import Norm, Params, Spec, rms_norm, silu, softplus
 
 __all__ = ["mamba_specs", "mamba_block", "mamba_decode_step",
            "init_ssm_state"]
@@ -58,8 +58,9 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 
 
 def mamba_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                impl: str = "cuda") -> torch.Tensor:
-    """Full-sequence Mamba2 block. x: [B, S, D] -> [B, S, D]."""
+                impl: str = "cuda", norm: Norm = rms_norm) -> torch.Tensor:
+    """Full-sequence Mamba2 block. x: [B, S, D] -> [B, S, D]; ``norm`` is
+    the gated output norm's function."""
     B, S, _ = x.shape
     di, nh, hd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
     z = x @ p["z_proj"]
@@ -76,7 +77,7 @@ def mamba_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
         y, _ = ssd_chunked(xh, dt, A, Bc, Cc, chunk)
     y = y + xh * p["D"][None, None, :, None].to(xh.dtype)
     y = y.reshape(B, S, di).to(x.dtype)
-    y = rms_norm(p["norm"], y * silu(z))
+    y = norm(p["norm"], y * silu(z))
     return y @ p["out_proj"]
 
 

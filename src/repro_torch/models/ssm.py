@@ -2,7 +2,9 @@
 
 A port of ``repro.models.ssm.MambaLM``.  Parameters have the reference's
 structure, per-layer tensors stacked on a leading L axis; the reference's
-scan over layers becomes a loop over that axis.
+scan over layers becomes a loop over that axis.  :meth:`MambaLM.loss` is
+the train path, on the plain SSD route (``impl="ref"``), as
+``TransformerLM.loss`` is for the dense family.
 """
 from __future__ import annotations
 
@@ -13,10 +15,12 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .attention import IMPLS
-from .layers import (Params, Spec, dtype_of, embed, embedding_specs,
-                     init_from_specs, layer_params, rms_norm, unembed)
+from .layers import (Params, Spec, cross_entropy_loss, dtype_of, embed,
+                     embedding_specs, init_from_specs, layer_params,
+                     plain_rms_norm, rms_norm, unembed)
 from .mamba import (init_ssm_state, mamba_block, mamba_decode_step,
                     mamba_specs)
+from .transformer import _train_route, train_layers
 
 __all__ = ["MambaLM", "param_specs"]
 
@@ -70,11 +74,33 @@ class MambaLM:
                                 self.impl)
         return rms_norm(params["final_norm"], x)
 
-    def hidden_states(self, params: Params, tokens: torch.Tensor
-                      ) -> torch.Tensor:
-        """Final-normed hidden states [B, S, D] of the whole sequence."""
-        return self._layers(params, embed(params["emb"], tokens,
-                                          self.cfg.embed_scale))
+    def hidden_states(self, params: Params, tokens: torch.Tensor,
+                      mode: str = "serve") -> torch.Tensor:
+        """Final-normed hidden states [B, S, D] of the whole sequence;
+        ``mode="train"`` is the train path (``impl="ref"``)."""
+        x = embed(params["emb"], tokens, self.cfg.embed_scale)
+        if mode != "train":
+            return self._layers(params, x)
+        _train_route(self)
+        cfg = self.cfg
+
+        def block(lp: Params, y: torch.Tensor) -> torch.Tensor:
+            return y + mamba_block(lp["mamba"], cfg,
+                                   plain_rms_norm(lp["ln"], y), self.impl,
+                                   norm=plain_rms_norm)
+
+        x = train_layers(params["layers"], x, cfg.remat, block)
+        return plain_rms_norm(params["final_norm"], x)
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token cross entropy and its metrics, as the
+        reference's ``MambaLM.loss``."""
+        x = self.hidden_states(params, batch["tokens"], mode="train")
+        ce = cross_entropy_loss(params["emb"], x, batch["labels"],
+                                self.cfg.loss_chunk,
+                                vocab_valid=self.cfg.vocab_size)
+        return ce, {"ce": ce}
 
     # ---- serving ---------------------------------------------------------
     def init_decode_state(self, batch: int, max_seq: int

@@ -5,22 +5,31 @@ Parameters are a nested dict with the reference's structure
 are stacked on a leading L axis, and the reference's scan over layers becomes
 a loop over that axis.  Families and features this slice lacks (MoE,
 non-RoPE positions) raise ``NotImplementedError``.
+
+:meth:`TransformerLM.loss` is the train path (``hidden_states`` in
+``mode="train"``): the reference's plain route (``impl="ref"``) under
+autograd, each layer's views taken with one ``unbind`` per stacked leaf,
+each layer under activation checkpointing when ``cfg.remat``, and plain
+norms (the kernels have no backward).  The MoE aux term does not arise:
+MoE is not ported.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .attention import (IMPLS, DecodePositions, ExtendPositions, attention,
                         decode_attention, decode_positions, extend_attention,
                         extend_positions, init_kv_cache)
-from .layers import (Params, Spec, dtype_of, embed, embedding_specs,
-                     init_from_specs, layer_params, mlp, rms_norm, unembed)
+from .layers import (Norm, Params, Spec, cross_entropy_loss, dtype_of, embed,
+                     embedding_specs, init_from_specs, layer_params, mlp,
+                     plain_rms_norm, rms_norm, unbind_layers, unembed)
 
-__all__ = ["TransformerLM", "param_specs"]
+__all__ = ["TransformerLM", "param_specs", "train_layers"]
 
 
 def param_specs(cfg: ModelConfig) -> Any:
@@ -50,13 +59,31 @@ def param_specs(cfg: ModelConfig) -> Any:
 
 
 def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor, impl: str
+                  positions: torch.Tensor, impl: str, norm: Norm = rms_norm
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One block; returns (x, k, v) with the block's cache entries."""
-    a, k, v = attention(p["attn"], cfg, rms_norm(p["ln1"], x), positions,
-                        impl=impl)
+    a, k, v = attention(p["attn"], cfg, norm(p["ln1"], x), positions,
+                        impl=impl, norm=norm)
     x = x + a
-    return x + mlp(p["mlp"], rms_norm(p["ln2"], x), cfg.act), k, v
+    return x + mlp(p["mlp"], norm(p["ln2"], x), cfg.act), k, v
+
+
+def train_layers(layers: Params, x: torch.Tensor, remat: bool,
+                 block: Callable[[Params, torch.Tensor], torch.Tensor]
+                 ) -> torch.Tensor:
+    """``block(layer_params, x)`` over the stacked layers for the train
+    path: per-layer views by :func:`~.layers.unbind_layers`, each layer
+    recomputed in the backward when ``remat`` (the reference's
+    ``jax.checkpoint`` of its scan body).  The RNG state is not saved: no
+    step draws random numbers, and reading it is illegal in a CUDA Graph
+    capture."""
+    for lp in unbind_layers(layers):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                block, lp, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = block(lp, x)
+    return x
 
 
 def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -73,6 +100,13 @@ def block_extend(p: Params, cfg: ModelConfig, x: torch.Tensor,
     x = x + extend_attention(p["attn"], cfg, rms_norm(p["ln1"], x),
                              k_cache, v_cache, pos)
     return x + mlp(p["mlp"], rms_norm(p["ln2"], x), cfg.act)
+
+
+def _train_route(model: Any) -> None:
+    if model.impl != "ref":
+        raise ValueError(f"{model.cfg.name}: the train path runs the plain "
+                         f"route (impl='ref'); the {model.impl!r} kernels "
+                         f"have no backward")
 
 
 class TransformerLM:
@@ -104,16 +138,39 @@ class TransformerLM:
                                self.device, seed)
 
     # ---- forward ---------------------------------------------------------
-    def hidden_states(self, params: Params, tokens: torch.Tensor
-                      ) -> torch.Tensor:
-        """Final-normed hidden states [B, S, D] of the whole sequence."""
+    def hidden_states(self, params: Params, tokens: torch.Tensor,
+                      mode: str = "serve") -> torch.Tensor:
+        """Final-normed hidden states [B, S, D] of the whole sequence.
+
+        ``mode="train"`` is the train path (see the module's docstring);
+        it needs the plain route, ``impl="ref"``."""
         cfg = self.cfg
         x = embed(params["emb"], tokens, cfg.embed_scale)
         positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+        if mode == "train":
+            _train_route(self)
+
+            def block(lp: Params, y: torch.Tensor) -> torch.Tensor:
+                return block_forward(lp, cfg, y, positions, self.impl,
+                                     plain_rms_norm)[0]
+
+            x = train_layers(params["layers"], x, cfg.remat, block)
+            return plain_rms_norm(params["final_norm"], x)
         for i in range(cfg.n_layers):
             x, _, _ = block_forward(layer_params(params["layers"], i), cfg, x,
                                     positions, self.impl)
         return rms_norm(params["final_norm"], x)
+
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token cross entropy of ``batch`` (``tokens`` and
+        ``labels``, [B, S]) and its metrics, as the reference's
+        ``TransformerLM.loss`` (``aux`` is 0: no MoE)."""
+        cfg = self.cfg
+        x = self.hidden_states(params, batch["tokens"], mode="train")
+        ce = cross_entropy_loss(params["emb"], x, batch["labels"],
+                                cfg.loss_chunk, vocab_valid=cfg.vocab_size)
+        return ce, {"ce": ce, "aux": torch.zeros_like(ce)}
 
     # ---- serving ---------------------------------------------------------
     def init_decode_state(self, batch: int, max_seq: int

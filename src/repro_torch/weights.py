@@ -7,6 +7,12 @@ as ``ml_dtypes`` arrays or as float32 — and returns the port's param tree on
 ``device``.  The structure and every leaf's shape are checked against the
 port's own :func:`~repro_torch.models.param_specs` for the config's family,
 and every leaf takes its spec's type.
+
+``opt_state_from_jax`` and ``ef_state_from_jax`` carry over the
+reference's optimizer state (``repro.optim.adamw.AdamWState``: step, fp32
+master weights and moments) and error-feedback residuals
+(``repro.optim.compression.ErrorFeedbackState``), so a port trainer can
+start from a reference trainer's mid-run state.
 """
 from __future__ import annotations
 
@@ -19,8 +25,10 @@ from .configs.base import ModelConfig
 from .device import resolve_device
 from .models import param_specs
 from .models.layers import Params, Spec, dtype_of, map_params
+from .optim.adamw import AdamWState
+from .optim.compression import ErrorFeedbackState
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "ef_state_from_jax"]
 
 
 def params_from_jax(np_tree: Any, cfg: ModelConfig,
@@ -44,3 +52,27 @@ def params_from_jax(np_tree: Any, cfg: ModelConfig,
             device=dev, dtype=spec.dtype or dtype)
 
     return map_params(convert, param_specs(cfg), np_tree)
+
+
+def opt_state_from_jax(step: Any, master: Any, m: Any, v: Any,
+                       cfg: ModelConfig,
+                       device: Optional[Union[str, torch.device]] = None
+                       ) -> AdamWState:
+    """The reference's AdamW state (its four fields as numpy) -> the port's:
+    the step an int32 0-d tensor, the three trees fp32."""
+    dev = resolve_device(device)
+    f32 = torch.float32
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                          device=dev),
+        master=params_from_jax(master, cfg, dev, f32),
+        m=params_from_jax(m, cfg, dev, f32),
+        v=params_from_jax(v, cfg, dev, f32))
+
+
+def ef_state_from_jax(residual: Any, cfg: ModelConfig,
+                      device: Optional[Union[str, torch.device]] = None
+                      ) -> ErrorFeedbackState:
+    """The reference's error-feedback residuals (numpy) -> the port's."""
+    return ErrorFeedbackState(params_from_jax(residual, cfg, device,
+                                              torch.float32))
