@@ -191,6 +191,31 @@ T2. ``benchmarks/bench_submission.py``'s ``_multistep_economy``
     doorbells 16 / 4 / 1, final loss, graph nodes and footprint; K=4's
     losses equal K=1's within 1e-3 relative;
 
+then phase P, the submission-policy tuner (``repro_torch.tune``) at
+gemma-2b's full width:
+
+P0. the parent releases phase T's state and its cuBLAS workspaces and
+    keeps under 2 GiB reserved;
+P1. ``python -m repro_torch.tune --arch gemma-2b --full --workloads
+    dma,serve,train,kv --rounds 2 --batch 8 --new-tokens 64 --max-seq 128
+    --train-steps 16 --cuda-env CUDA_MODULE_LOADING=LAZY`` in a subprocess
+    (the preset applied before CUDA starts; ``--verify`` on): the policy
+    holds the five knobs, after <= before, a trial log, the workload spec
+    and the preset; one ``<card> | P1 <workload> <knobs>: objective,
+    doorbells/token, dispatch, transfer, <unit>/s`` line per measured
+    candidate (from the trial log), the chosen knobs and the ``verify:``
+    lines;
+P2. every knob owner (``Server``, the paged ``ContinuousBatchingServer``,
+    ``Trainer``, ``HybridMover``) at full width picks the policy up with
+    its knob unset, explicit values win, and ``REPRO_POLICY_DISABLE=1``
+    restores the defaults (1, 16, 0, 1, 24 KiB);
+P3. ``benchmarks/bench_policy.py``, in a fresh process (``chip_smoke.py
+    --policy-bench``): the serve workload at T=1 and at the tuned T
+    through the tuner's evaluator on P1's spec, one ``<card> | P3
+    policy_serve_<baseline|tuned>`` line each (with the path kernels'
+    launches), and the recorded before/after;
+P4. the phase's wall time;
+
 every profiler window of the script (phase 5, C1, S2, K1-K2, T3 and the
 device times) matches torch.profiler's records to their launches by
 correlation id: a graph launch to its decoded nodes, an eager kernel
@@ -219,11 +244,14 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import urllib.request
+from unittest import mock
 from pathlib import Path
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -265,6 +293,10 @@ from repro_torch.runtime.server import (ContinuousBatchingServer,  # noqa: E402
 from repro_torch.runtime.trainer import Trainer  # noqa: E402
 from repro_torch.runtime.traffic import (Arrival, TrafficSpec,  # noqa: E402
                                          generate, replay)
+from repro_torch.tune import Objective, clear_active_policy  # noqa: E402
+from repro_torch.tune.autotune import (KNOB_WORKLOADS,  # noqa: E402
+                                       CandidateEvaluator, WorkloadSpec,
+                                       default_knobs)
 
 TOL = {"rms_norm": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
        "flash_attention": {torch.float32: 3e-5, torch.bfloat16: 3e-2},
@@ -2682,6 +2714,286 @@ def train_path(card: str, device: torch.device) -> None:
     free()
 
 
+# ---------------------------------------------------------------- phase P
+# the tuner at gemma-2b's full width.  WorkloadSpec's defaults (B=2, 8 new
+# tokens, 8 train steps) measure a serve in 27-131 ms and a T>=2 serve
+# spends one decode step of eight on a truncated block, too short to rank
+# the knobs; these measure 64 new tokens for 8 sequences and 16 train
+# steps (prompts of 4, train B=2 S=32, the 4 DMA sizes 256 B-256 KiB
+# three times and the 16-token kv prefix stay the defaults)
+P_ARCH = "gemma-2b"
+P_SPEC = WorkloadSpec(batch=8, new_tokens=64, max_seq=128, train_steps=16)
+P_WIDTH = ("--full",)                      # the published config
+P_WORKLOADS = ("dma", "serve", "train", "kv")
+P_ROUNDS = 2
+P_PRESET = "CUDA_MODULE_LOADING=LAZY"      # CUDA's default: recorded only
+P_RESERVED_MAX = 2 * 2**30                 # bytes the parent may keep
+P_TIMEOUT_S = 900
+P3_FLAG = "--policy-bench"                 # P3's own process: see tuner_bench
+P_UNITS = {"dma": "puts", "serve": "tokens", "train": "steps",
+           "kv": "tokens"}
+# what each owner falls back to without a policy
+P_DEFAULTS = {"tokens_per_launch": 1, "kv_page_tokens": 16,
+              "prefill_chunk": 0, "steps_per_launch": 1,
+              "dma_threshold_bytes": INLINE_THRESHOLD_DEFAULT}
+ROOT = Path(__file__).resolve().parent
+
+
+def tuner_release(card: str) -> None:
+    """P0: release phase T's state; the tuner's subprocess needs the card.
+
+    Besides the owners, the parent holds a cuBLAS workspace for each
+    stream a capture used, and each pins its segment of the allocator's
+    cache; no graph that used them is alive now, so they are cleared."""
+    free()
+    kept = torch.cuda.memory_reserved()
+    torch._C._cuda_clearCublasWorkspaces()
+    free()
+    reserved = torch.cuda.memory_reserved()
+    log(f"{card} | P0 parent after phase T: {kept / 2**30:.3f} GiB "
+        f"reserved, {reserved / 2**30:.3f} GiB once the cuBLAS workspaces "
+        f"are cleared")
+    if reserved >= P_RESERVED_MAX:
+        raise AssertionError(f"P0: the parent keeps {reserved} B reserved, "
+                             f"not under {P_RESERVED_MAX}")
+
+
+def trial_lines(card: str, policy: Dict[str, Any]) -> int:
+    """One line per measured candidate of each workload, from the policy's
+    trial log; returns their number."""
+    spec = policy["meta"]["workload_spec"]
+    T_tokens = spec["train_batch"] * spec["train_seq"]
+    seen = set()
+    for trial in policy["objective"]["trials"]:
+        for w, m in trial["info"].items():
+            own = tuple((k, trial["knobs"][k]) for k in KNOB_WORKLOADS[w])
+            if (w, own) in seen:
+                continue
+            seen.add((w, own))
+            rate = m["tokens"] / m["wall_s"]
+            extra = (f" ({rate * T_tokens:.1f} tokens/s)" if w == "train"
+                     else "")
+            log(f"{card} | P1 {w} "
+                f"{' '.join(f'{k}={v}' for k, v in own)}: objective "
+                f"{m['score']:.4e} s/{P_UNITS[w][:-1]}, doorbells/"
+                f"{P_UNITS[w][:-1]} {m['doorbells_per_token']:.4f}, dispatch "
+                f"{m['dispatch_s'] * 1e3:.3f} ms, transfer "
+                f"{m['transfer_s'] * 1e3:.3f} ms, {m['tokens']} "
+                f"{P_UNITS[w]} in {m['wall_s'] * 1e3:.3f} ms, "
+                f"{rate:.1f} {P_UNITS[w]}/s{extra}")
+    return len(seen)
+
+
+def device_name(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
+def tuner_cli(card: str, device: torch.device, policy_root: Path
+              ) -> Tuple[Dict[str, Any], Path]:
+    """P1: ``python -m repro_torch.tune`` at full width in a subprocess (the
+    preset is applied before CUDA starts there); its policy checked and
+    its trials printed.  The policy goes to ``--policy-dir``, the port's
+    directory under ``policy_root``, where ``--verify``'s Server (knob
+    unset) looks it up through ``REPRO_POLICY_DIR``.  Returns the policy
+    and its file."""
+    policy_dir = policy_root / "torch"
+    cmd = [sys.executable, "-m", "repro_torch.tune", "--arch", P_ARCH,
+           *P_WIDTH, "--workloads", ",".join(P_WORKLOADS), "--rounds",
+           str(P_ROUNDS), "--batch", str(P_SPEC.batch), "--new-tokens",
+           str(P_SPEC.new_tokens), "--max-seq", str(P_SPEC.max_seq),
+           "--train-steps", str(P_SPEC.train_steps), "--policy-dir",
+           str(policy_dir), "--cuda-env", P_PRESET, "--device", device.type]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               REPRO_POLICY_DIR=str(policy_root))
+    env.pop("REPRO_POLICY_DISABLE", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=P_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"P1: {' '.join(cmd[1:])} exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    if "RuntimeWarning" in proc.stderr:
+        raise AssertionError(f"P1: the preset warned:\n{proc.stderr[-2000:]}")
+    for line in proc.stdout.splitlines():
+        if line.startswith("    measured "):
+            log(f"P1 {line.strip()}")
+    cfg = ARCHS[P_ARCH]
+    path = policy_dir / f"{cfg.name}__{device.type}__d1.json"
+    policy = json.loads(path.read_text())
+    knobs, obj, env_rec = policy["knobs"], policy["objective"], policy["env"]
+    names = sorted(k.name for k in default_knobs(P_WORKLOADS))
+    checks = {
+        f"the five knobs, not {sorted(knobs)}": sorted(knobs) == names,
+        "after <= before": obj["after"] <= obj["before"],
+        "a trial log": bool(obj["trials"]),
+        f"platform {device.type}, not {policy['platform']}":
+            policy["platform"] == device.type,
+        f"this device, not {env_rec['device_name']}":
+            env_rec["device_name"] == device_name(device),
+        f"the preset in force, not {env_rec['cuda_env']}":
+            env_rec["cuda_env"].get("CUDA_MODULE_LOADING") == "LAZY"
+            and env_rec["preset"]["cuda_env"] == P_PRESET}
+    if policy["meta"]["workload_spec"] != json.loads(json.dumps(
+            P_SPEC.to_dict())):
+        checks["the workload spec asked for"] = False
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"P1: policy {path} lacks {failed}")
+    n = trial_lines(card, policy)
+    log(f"{card} | P1 chosen {knobs}: objective before {obj['before']:.4e} "
+        f"after {obj['after']:.4e} s/token ({100 * obj['improvement']:.1f}% "
+        f"better), {len(obj['trials'])} trials, {n} measurements, "
+        f"{policy['meta']['rounds']} rounds, subprocess {wall:.1f} s")
+    verify = [ln for ln in proc.stdout.splitlines()
+              if ln.startswith("verify:")]
+    for line in verify[:2]:
+        log(f"{card} | P1 {line}")
+    applied = re.search(r"auto-applied tokens_per_launch=(\d+) "
+                        r"\(policy says (\d+)\)", "\n".join(verify))
+    if not applied or {int(applied[1]), int(applied[2])} != {
+            knobs["tokens_per_launch"]}:
+        raise AssertionError(f"P1: verify {verify[:1]} against the policy's "
+                             f"tokens_per_launch {knobs['tokens_per_launch']}")
+    return policy, path
+
+
+def owner_knobs(device: torch.device, explicit: Dict[str, Any]
+                ) -> Tuple[Dict[str, Any], int]:
+    """Each knob owner built at full width in turn (released before the
+    next), with ``explicit`` values passed and the rest unset; the knob
+    each took, and how many owners loaded a policy."""
+    cfg, spec = ARCHS[P_ARCH], P_SPEC
+    e = explicit.get
+    out: Dict[str, Any] = {}
+    srv = Server(cfg, batch_size=spec.batch, max_seq=spec.max_seq,
+                 tokens_per_launch=e("tokens_per_launch"), device=device)
+    out["tokens_per_launch"] = srv.T
+    loaded = srv.policy is not None
+    del srv
+    free()
+    eng = ContinuousBatchingServer(
+        cfg, batch_size=spec.batch, max_seq=spec.max_seq,
+        tokens_per_launch=e("tokens_per_launch"), kv="paged",
+        kv_page_tokens=e("kv_page_tokens"),
+        prefill_chunk=e("prefill_chunk"), device=device)
+    out["kv_page_tokens"], out["prefill_chunk"] = eng.kv.pt, eng.kv.chunk
+    loaded += eng.policy is not None
+    del eng
+    free()
+    tr = Trainer(cfg, ShapeConfig("tune", spec.train_seq, spec.train_batch,
+                                  "train"),
+                 steps_per_launch=e("steps_per_launch"), device=device)
+    out["steps_per_launch"] = tr.k
+    loaded += tr.policy is not None
+    del tr
+    free()
+    out["dma_threshold_bytes"] = HybridMover(
+        threshold=e("dma_threshold_bytes"), device=device).threshold
+    return out, loaded
+
+
+def tuner_auto_apply(card: str, device: torch.device, policy_root: Path,
+                     policy: Dict[str, Any]) -> None:
+    """P2: every owner picks the P1 policy up with its knob unset; explicit
+    values win; ``REPRO_POLICY_DISABLE=1`` restores the defaults."""
+    knobs = policy["knobs"]
+    ladders = {k.name: k.values for k in default_knobs(P_WORKLOADS)}
+    explicit = {name: next(v for v in ladders[name]
+                           if v not in (knobs[name], P_DEFAULTS[name]))
+                for name in knobs}
+    cases = (("policy", {}, "", knobs, 3),
+             ("explicit", explicit, "", explicit, 0),
+             ("REPRO_POLICY_DISABLE=1", {}, "1", P_DEFAULTS, 0))
+    for label, given, disable, want, n_loaded in cases:
+        clear_active_policy()
+        # an empty REPRO_POLICY_DISABLE disables nothing
+        with mock.patch.dict(os.environ, REPRO_POLICY_DIR=str(policy_root),
+                             REPRO_POLICY_DISABLE=disable):
+            got, loaded = owner_knobs(device, given)
+        clear_active_policy()
+        log(f"{card} | P2 {label}: {got}, {loaded} owners loaded the policy")
+        if got != dict(want) or loaded != n_loaded:
+            raise AssertionError(f"P2 {label}: owners took {got} "
+                                 f"({loaded} loaded a policy), expected "
+                                 f"{dict(want)} ({n_loaded})")
+
+
+def tuner_bench(card: str, device: torch.device, policy_path: Path) -> None:
+    """P3 in a fresh process, its lines relayed.  This process has run the
+    profiler windows of the earlier phases, after which the same graph
+    replay costs several times the host dispatch (PERF.md), and the
+    objective scores host dispatch; P1 measured in a fresh process too."""
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), P3_FLAG,
+           str(policy_path), device.type, card]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=ROOT, timeout=P_TIMEOUT_S)
+    if proc.returncode:
+        raise AssertionError(f"P3: {' '.join(cmd[1:])} exited "
+                             f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    for line in proc.stdout.splitlines():
+        log(re.sub(r"^\[\d\d:\d\d:\d\d\] ", "", line))
+
+
+def policy_bench(card: str, device: torch.device,
+                 policy: Dict[str, Any]) -> None:
+    """P3: ``benchmarks/bench_policy.py``: the serve workload re-measured
+    at T=1 and at the tuned T through the tuner's own evaluator, on the
+    config and workload spec the policy was tuned on, and the path kernels
+    each serve launched."""
+    meta = policy["meta"]
+    cfg = (SMOKE_ARCHS if meta["smoke"] else ARCHS)[meta["arch_key"]]
+    spec = WorkloadSpec(**{**meta["workload_spec"], "dma_sizes": tuple(
+        meta["workload_spec"]["dma_sizes"])})
+    obj = Objective()
+    ev = CandidateEvaluator(cfg, spec=spec, objective=obj,
+                            workloads=("serve",), device=device)
+    tuned = int(policy["knobs"]["tokens_per_launch"])
+    for label, T in (("baseline", 1), ("tuned", tuned)):
+        reset_launches()
+        m = ev.measure("serve", {"tokens_per_launch": T})
+        counted = dict(launches)
+        log(f"{card} | P3 policy_serve_{label} T={T}: score "
+            f"{obj.score(m):.4e} s/token, doorbells/token "
+            f"{m.doorbells_per_token:.4f}, dispatch {m.dispatch_s * 1e3:.3f} "
+            f"ms, tokens {m.tokens}, {m.tokens / m.wall_s:.1f} tokens/s; "
+            f"kernel launches (warm and measured serve) {counted}")
+        measured = label == "baseline" or T != 1     # else the cached one
+        if device.type == "cuda" and measured and not (
+                counted.get("rms_norm") and counted.get("flash_attention")):
+            raise AssertionError(f"P3 {label}: the serve launched "
+                                 f"{counted}, not the path kernels")
+    log(f"{card} | P3 policy_objective_recorded before "
+        f"{policy['objective']['before']:.4e} after "
+        f"{policy['objective']['after']:.4e}")
+
+
+def policy_bench_main(policy_path: str, device: str, card: str) -> int:
+    """``chip_smoke.py --policy-bench POLICY DEVICE CARD``: P3 alone, in
+    the process ``tuner_bench`` starts."""
+    policy_bench(card, resolve_device(device),
+                 json.loads(Path(policy_path).read_text()))
+    return 0
+
+
+def tuner_path(card: str, device: torch.device) -> None:
+    """Phase P: the submission-policy tuner at gemma-2b's full width."""
+    t0 = time.perf_counter()
+    tuner_release(card)
+    with tempfile.TemporaryDirectory(prefix="policies-") as root:
+        policy_root = Path(root)
+        log("phase P1: python -m repro_torch.tune at full width")
+        policy, policy_path = tuner_cli(card, device, policy_root)
+        log("phase P2: the knob owners apply the policy")
+        tuner_auto_apply(card, device, policy_root, policy)
+        log("phase P3: bench_policy, baseline against tuned, in a fresh "
+            "process")
+        tuner_bench(card, device, policy_path)
+    log(f"{card} | P4 phase P: {time.perf_counter() - t0:.1f} s")
+
+
 # ---------------------------------------------------------------- kernels
 def roofline(cost: KernelCost) -> Dict[str, Any]:
     """Bound of bf16 work on one H100 SXM (NVIDIA's published peaks): the
@@ -2829,6 +3141,9 @@ def main() -> int:
     log("phase T: training, every launch one CUDA Graph replay")
     train_path(card, device)
 
+    log("phase P: the submission-policy tuner, gemma-2b at full width")
+    tuner_path(card, device)
+
     log("kernels at their paths' shapes")
     kernels = [rms_entry(device), flash_entry(device), ssd_entry(device)]
     kernels[1]["long_s"] = flash_long(card, device)
@@ -2877,4 +3192,6 @@ def _leaves(tree) -> List[torch.Tensor]:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [P3_FLAG]:
+        sys.exit(policy_bench_main(*sys.argv[2:]))
     sys.exit(main())

@@ -40,6 +40,7 @@ import torch
 
 from ..device import resolve_device, wait
 from ..kernels import _build, launches
+from ..tune.policy import resolve_knob
 from .session import TraceSession, resolve_session
 
 __all__ = [
@@ -281,18 +282,21 @@ class HybridMover:
     'inline'
 
     Payloads below ``threshold`` bytes go inline, the rest direct.
-    ``threshold=None`` means :data:`INLINE_THRESHOLD_DEFAULT`: the port has
-    no tuned policies yet (the reference resolves ``None`` through
-    ``repro.tune.policy`` first), as the port's ``Server`` reads
-    ``tokens_per_launch=None`` as 1.  Construction never touches the device;
-    ``device`` (``None`` means ``cuda``) is resolved at each put.
+    ``threshold=None`` (the default) resolves through the active tuned
+    policy (:func:`repro_torch.tune.policy.resolve_knob`), falling back to
+    :data:`INLINE_THRESHOLD_DEFAULT`, the paper's observed switch point — so
+    autotuned deployments pick up their learned threshold without every
+    call site knowing about policies.  Construction never touches the
+    device; ``device`` (``None`` means ``cuda``) is resolved at each put.
     """
 
     def __init__(self, threshold: Optional[int] = None,
                  device: Optional[Any] = None,
                  session: Optional[TraceSession] = None) -> None:
-        self.threshold = int(INLINE_THRESHOLD_DEFAULT if threshold is None
-                             else threshold)
+        if threshold is None:
+            threshold = resolve_knob("dma_threshold_bytes",
+                                     INLINE_THRESHOLD_DEFAULT)
+        self.threshold = int(threshold)
         self.device = device
         self.records: List[TransferRecord] = []
         self._session = session

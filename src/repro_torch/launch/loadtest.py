@@ -74,7 +74,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4, help="KV slots")
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--tokens-per-launch", type=int, default=None,
-                    help="unset -> 1 (the tuned policy is not ported)")
+                    help="unset -> the tuned policy, else 1")
     ap.add_argument("--max-pending", type=int, default=256)
     ap.add_argument("--admission", default="reject",
                     choices=("reject", "drop_oldest"))
@@ -82,14 +82,15 @@ def main(argv=None) -> int:
                     help="KV-cache backend (paged adds block tables + "
                          "shared-prefix page reuse)")
     ap.add_argument("--kv-page-tokens", type=int, default=None,
-                    help="paged backend page size in tokens (unset -> 16)")
+                    help="paged backend page size in tokens (unset -> "
+                         "the tuned policy, else 16)")
     ap.add_argument("--kv-pages", type=int, default=None,
                     help="paged pool size in pages (unset -> every slot "
                          "fully grown: exhaustion impossible)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
                     help="max tokens per prefill launch; longer prompts "
                          "are chunked and interleaved with decode iters "
-                         "(unset or 0 = off)")
+                         "(unset -> the tuned policy, else 0 = off)")
     ap.add_argument("--sched", default="fifo",
                     choices=("fifo", "priority", "fair"),
                     help="admission scheduling policy")

@@ -2,13 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b \
         [--smoke] [--batch 4] [--max-seq 128] [--prompt-len 8] \
-        [--new-tokens 16] [--tokens-per-launch 4] [--seed 0] [--device cuda] \
+        [--new-tokens 16] [--tokens-per-launch T] [--seed 0] [--device cuda] \
         [--continuous [--requests N] [--sched fifo|priority|fair] \
          [--kv dense|paged] [--kv-page-tokens P] [--prefill-chunk C] \
          [--live [PORT]]] [--trace PATH] [--profile]
 
 Runs on the card unless ``--device cpu`` is given.  Weights are the port's
-seeded random init; prompts are seeded random tokens.
+seeded random init; prompts are seeded random tokens.  Unset launch knobs
+(``--tokens-per-launch``, ``--kv-page-tokens``, ``--prefill-chunk``) come
+from the tuned policy for the config (``python -m repro_torch.tune``), else
+4, 16 and 0.
 
 ``--continuous`` serves the requests through the continuous-batching
 engine (queued admission, per-request KV slots) instead of one static
@@ -38,6 +41,11 @@ from ..core.session import TraceSession
 from ..distributed.context import process_tags, shard_path
 from ..obs.profile import SpanProfile
 from ..runtime.server import ContinuousBatchingServer, Request, Server
+from ..tune.policy import load_policy_for
+
+#: decode steps a launch when ``--tokens-per-launch`` is unset and no tuned
+#: policy exists
+DEFAULT_TOKENS_PER_LAUNCH = 4
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -48,16 +56,19 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--max-seq", type=int, default=128)
     ap.add_argument("--prompt-len", type=int, default=8)
     ap.add_argument("--new-tokens", type=int, default=16)
-    ap.add_argument("--tokens-per-launch", type=int, default=4)
+    ap.add_argument("--tokens-per-launch", type=int, default=None,
+                    help="decode steps a launch (unset -> the tuned "
+                         f"policy, else {DEFAULT_TOKENS_PER_LAUNCH})")
     ap.add_argument("--continuous", action="store_true",
                     help="serve through the continuous-batching engine")
     ap.add_argument("--kv", default="dense", choices=("dense", "paged"),
                     help="with --continuous: KV-cache backend")
     ap.add_argument("--kv-page-tokens", type=int, default=None,
-                    help="paged backend page size in tokens (unset -> 16)")
+                    help="paged backend page size in tokens (unset -> "
+                         "the tuned policy, else 16)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
-                    help="max tokens per prefill launch (unset or 0 = "
-                         "whole-prompt)")
+                    help="max tokens per prefill launch (unset -> the "
+                         "tuned policy, else 0; 0 = whole-prompt)")
     ap.add_argument("--sched", default="fifo",
                     choices=("fifo", "priority", "fair"),
                     help="with --continuous: admission scheduling policy")
@@ -77,6 +88,18 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = ap.parse_args(argv)
 
     cfg = (SMOKE_ARCHS if args.smoke else ARCHS)[args.arch]
+    # one lookup, made ambient as an owner's is; each flag left unset takes
+    # the policy's value, else the CLI's default (None: the owner's)
+    policy = load_policy_for(cfg, device=args.device)
+
+    def knob(flag: Optional[int], name: str, untuned: Optional[int]
+             ) -> Optional[int]:
+        if flag is not None:
+            return flag
+        return policy.knob(name, untuned) if policy else untuned
+
+    tpl = knob(args.tokens_per_launch, "tokens_per_launch",
+               DEFAULT_TOKENS_PER_LAUNCH)
     shard = shard_path(args.trace) if args.trace else None
     session = TraceSession(name="serve", jsonl_path=shard,
                            tags=process_tags())
@@ -87,14 +110,15 @@ def main(argv: Optional[List[str]] = None) -> None:
     if args.continuous:
         srv = ContinuousBatchingServer(
             cfg, batch_size=args.batch, max_seq=args.max_seq,
-            tokens_per_launch=args.tokens_per_launch, seed=args.seed,
+            tokens_per_launch=tpl, seed=args.seed,
             session=session, kv=args.kv,
-            kv_page_tokens=args.kv_page_tokens,
-            prefill_chunk=args.prefill_chunk, sched=args.sched,
+            kv_page_tokens=knob(args.kv_page_tokens, "kv_page_tokens", None),
+            prefill_chunk=knob(args.prefill_chunk, "prefill_chunk", None),
+            sched=args.sched,
             device=args.device)
     else:
         srv = Server(cfg, batch_size=args.batch, max_seq=args.max_seq,
-                     tokens_per_launch=args.tokens_per_launch, seed=args.seed,
+                     tokens_per_launch=tpl, seed=args.seed,
                      session=session, device=args.device)
     rng = np.random.default_rng(args.seed)
     n = (args.requests or args.batch) if args.continuous else args.batch

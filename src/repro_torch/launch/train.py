@@ -7,8 +7,8 @@
 
 Runs on the card unless ``--device cpu`` is given; ``--smoke`` takes the
 reduced same-family config.  Every launch is one doorbell and, on the card,
-one CUDA Graph replay of ``--steps-per-launch`` train steps (unset: 4, the
-reference's default when no tuned policy exists; the tuner is not ported).
+one CUDA Graph replay of ``--steps-per-launch`` train steps (unset: the
+tuned policy for the config, ``python -m repro_torch.tune``, else 4).
 
 ``--trace PATH`` writes this process's fleet-identified JSONL shard
 (``host``/``process`` tags, per-process filename) for
@@ -27,8 +27,10 @@ from ..core.session import TraceSession
 from ..distributed.context import process_tags, shard_path
 from ..obs.profile import SpanProfile
 from ..runtime.trainer import Trainer
+from ..tune.policy import load_policy_for
 
-#: steps a launch when ``--steps-per-launch`` is unset
+#: steps a launch when ``--steps-per-launch`` is unset and no tuned policy
+#: exists
 DEFAULT_STEPS_PER_LAUNCH = 4
 
 
@@ -41,7 +43,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps-per-launch", type=int, default=None,
-                    help=f"unset -> {DEFAULT_STEPS_PER_LAUNCH}")
+                    help="unset -> the tuned policy, else "
+                         f"{DEFAULT_STEPS_PER_LAUNCH}")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--grad-compression", default=None,
@@ -58,7 +61,12 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     cfg = (SMOKE_ARCHS if args.smoke else ARCHS)[args.arch]
     shape = ShapeConfig("train", args.seq, args.batch, "train")
-    spl = args.steps_per_launch or DEFAULT_STEPS_PER_LAUNCH
+    # one lookup, made ambient as the trainer's own is
+    policy = load_policy_for(cfg, device=args.device)
+    spl = args.steps_per_launch
+    if spl is None:
+        spl = (policy.knob("steps_per_launch", DEFAULT_STEPS_PER_LAUNCH)
+               if policy else DEFAULT_STEPS_PER_LAUNCH)
     shard = shard_path(args.trace) if args.trace else None
     session = TraceSession(name="train", jsonl_path=shard,
                            tags=process_tags())
@@ -71,6 +79,9 @@ def main(argv: Optional[List[str]] = None) -> None:
                  grad_compression=args.grad_compression,
                  peak_lr=args.lr, seed=args.seed, session=session,
                  device=args.device)
+    if policy is not None:
+        print(f"policy: {policy.arch} knobs={policy.knobs} "
+              f"objective={policy.objective.get('after')}")
     if args.ckpt_dir and tr.maybe_restore():
         print(f"restored at step {tr.step}")
     out = tr.train(args.steps)

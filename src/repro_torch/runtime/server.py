@@ -33,9 +33,11 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.graphs import CapturedStep
 from ..core.session import SpanHandle, TraceSession
+from ..device import resolve_device
 from ..models import get_model
 from ..models.layers import Params, greedy
 from ..obs.live import LiveServer, LiveSummary
+from ..tune.policy import Policy, load_policy_for
 from .kv import make_kv
 from .scheduler import (AdmissionQueue, RequestTicket, latency_stats,
                         make_policy)
@@ -66,8 +68,11 @@ class _Serving:
     ``params`` defaults to the model's seeded init (``seed``); pass a param
     tree to serve given weights (e.g. the reference's, via
     :func:`repro_torch.weights.params_from_jax`, or another server's: the
-    tree is shared, not copied).  ``tokens_per_launch=None`` means 1 (the
-    reference's tuned policy is not ported).
+    tree is shared, not copied).  ``tokens_per_launch=None`` auto-applies
+    the tuned policy for this (model config, platform, device count), if
+    one is persisted (:func:`repro_torch.tune.policy.load_policy_for`, which
+    also makes it ambient), else 1; an explicit value always wins, with
+    ``policy`` None.
     """
 
     def __init__(self, cfg: ModelConfig, batch_size: int, max_seq: int,
@@ -78,9 +83,15 @@ class _Serving:
         self.cfg = cfg
         self.B = batch_size
         self.max_seq = max_seq
-        self.T = max(1, int(tokens_per_launch or 1))
-        self.model = get_model(cfg, impl="cuda", device=device)
-        self.device = self.model.device
+        # the policy is keyed by the device's platform: resolve it first
+        self.device = resolve_device(device)
+        self.policy: Optional[Policy] = None
+        if tokens_per_launch is None:
+            self.policy = load_policy_for(cfg, device=self.device)
+            tokens_per_launch = (self.policy.knob("tokens_per_launch", 1)
+                                 if self.policy else 1)
+        self.T = max(1, int(tokens_per_launch))
+        self.model = get_model(cfg, impl="cuda", device=self.device)
         # Shared timeline: pass a session to merge serving events with a
         # benchmark's; otherwise the server owns one.
         self.session = session or TraceSession(name="server")
@@ -284,8 +295,10 @@ class ContinuousBatchingServer(_Serving):
     tokens, block tables, shared-prefix pages; pool exhaustion evicts with
     ``reason="kv_pages"``); both need a model with ``prefill_extend`` for
     ``"paged"`` or ``prefill_chunk > 0`` (Mamba2 has none and raises
-    ``ValueError``).  Runs on the card unless ``device="cpu"``; ``params``
-    as for :class:`Server`.
+    ``ValueError``).  Unset, ``kv_page_tokens`` (paged only) and
+    ``prefill_chunk`` come from the tuned policy that an unset
+    ``tokens_per_launch`` loads (:class:`_Serving`), else 16 and 0.  Runs
+    on the card unless ``device="cpu"``; ``params`` as for :class:`Server`.
     """
 
     def __init__(self, cfg: ModelConfig, batch_size: int, max_seq: int,
@@ -321,14 +334,18 @@ class ContinuousBatchingServer(_Serving):
         self.session.add_sink(self.live)
         self._live_server: Optional[LiveServer] = None
 
-        # None -> default (the tuned policy is not ported); explicit invalid
-        # values (e.g. 0) must reach kv_geometry's validation instead of
-        # being silently coerced
-        self.kv = make_kv(
-            self, kv,
-            page_tokens=16 if kv_page_tokens is None else kv_page_tokens,
-            pages=kv_pages,
-            prefill_chunk=0 if prefill_chunk is None else prefill_chunk)
+        # unset knobs fall back to the tuned policy for this config, then to
+        # 16 and 0; explicit invalid values (e.g. 0) must reach
+        # kv_geometry's validation instead of being silently coerced
+        # (a page size only for the paged backend: dense has no pages)
+        if kv_page_tokens is None:
+            kv_page_tokens = int(self.policy.knob("kv_page_tokens", 16)
+                                 if self.policy and kv == "paged" else 16)
+        if prefill_chunk is None:
+            prefill_chunk = int(self.policy.knob("prefill_chunk", 0)
+                                if self.policy else 0)
+        self.kv = make_kv(self, kv, page_tokens=kv_page_tokens,
+                          pages=kv_pages, prefill_chunk=prefill_chunk)
 
     def graphs(self) -> Dict[str, CapturedStep]:
         """The engine's captured steps by name: one prefill a distinct

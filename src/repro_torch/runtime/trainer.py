@@ -33,10 +33,12 @@ from ..configs.shapes import ShapeConfig
 from ..core.graphs import CapturedStep
 from ..core.session import TraceSession
 from ..data.pipeline import make_pipeline
+from ..device import resolve_device
 from ..models import get_model
 from ..models.layers import Params
 from ..optim.adamw import tree_leaves
 from ..optim.compression import ef_init
+from ..tune.policy import Policy, load_policy_for
 from .checkpoint import CheckpointManager, latest_step, restore
 from .fault_tolerance import FleetMonitor
 from .steps import init_all, make_train_step
@@ -47,8 +49,9 @@ __all__ = ["Trainer"]
 class Trainer:
     """Train ``cfg`` on the deterministic synthetic pipeline at ``shape``.
 
-    ``steps_per_launch=None`` means 1 (the reference's tuned policy is not
-    ported).  ``params`` (e.g. the reference's, through
+    ``steps_per_launch=None`` auto-applies the tuned policy for this
+    (model config, platform, device count), if one is persisted, else 1;
+    an explicit value always wins, with ``policy`` None.  ``params`` (e.g. the reference's, through
     ``weights.params_from_jax``) is copied; without it the model's seeded
     init (``seed``) is used.  ``device`` defaults to ``cuda``.
     ``grad_compression="int8"`` applies at K = 1 only, as in the reference,
@@ -67,9 +70,15 @@ class Trainer:
                  params: Optional[Params] = None) -> None:
         self.cfg = cfg
         self.shape = shape
-        self.k = max(1, int(steps_per_launch or 1))
-        self.model = get_model(cfg, impl="ref", device=device)
-        self.device = self.model.device
+        # the policy is keyed by the device's platform: resolve it first
+        self.device = resolve_device(device)
+        self.policy: Optional[Policy] = None
+        if steps_per_launch is None:
+            self.policy = load_policy_for(cfg, device=self.device)
+            steps_per_launch = (self.policy.knob("steps_per_launch", 1)
+                                if self.policy else 1)
+        self.k = max(1, int(steps_per_launch))
+        self.model = get_model(cfg, impl="ref", device=self.device)
         # one session carries every event of this trainer; callers share
         # theirs to merge timelines
         self.session = session or TraceSession(name="trainer")
