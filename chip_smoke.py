@@ -19,7 +19,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    16 chunks, H = 3 and 11, P < 64 and N < 128), and at the continuous
    engine's batch-1 prefills (flash at S = 4, 8, 128, 256 and 512 with
    gemma-2b's heads; the SSD scan at chunk = S = 4 and 8 and at S = 128,
-   256 and 512);
+   256 and 512), and at phase Z's shapes (flash at qwen2-moe's, jamba's and
+   grok's heads, B=4 and batch 1; the SSD scan at jamba's N = 16);
 
 then the paper's DMA case study (section 6.2):
 
@@ -42,9 +43,11 @@ D2. the two DMA-copy kernels (pipelined, explicit TMA) held byte for byte
     pipelined slice and one byte more, and at the path shape, [32768, 4096]
     bf16 (256 MiB); then the path: each copy at block_rows 8, 32, 128 and
     256 bracketed by ``ProgressTracker`` releases on one session (counts
-    zeroed just before, read just after), and the brackets held against
-    torch.profiler's device time, with each copy's grid and blocks resident
-    per SM and its time against ``copy_``;
+    zeroed just before, read just after), three brackets of 20 copies a
+    tile, each opened behind a 2 ms device-side spin so that no host stall
+    lands inside it, and their median held against torch.profiler's device
+    time within 15%, with each copy's grid and blocks resident per SM and
+    its time against ``copy_``;
 
 G. ``ExecGraph``'s three launch modes (``src/repro_torch/core/graphs.py``),
    a chain of K identical nodes of the hand-written node kernel
@@ -70,7 +73,7 @@ S. the paper's instrument, command-stream capture (``core/capture.py``,
    phase 7 of each serving path, below;
 
 then, for each serving path, gemma-2b (dense, flash attention) and
-mamba2-780m (SSD scan), both at full published width:
+mamba2-780m (SSD scan), both at full published width (and phase Z's, below):
 
 4. build the model from the port's seeded on-device init;
 5. serve 4 ragged requests through ``Server.serve`` at tokens_per_launch 1
@@ -82,11 +85,14 @@ mamba2-780m (SSD scan), both at full published width:
    launches equal the profiler's count of the same kernels, by name; each
    graph's node count a replay;
 6. hold the kernel route (``impl="cuda"``) against the plain route
-   (``impl="ref"``) on the same weights: bf16 prefill logits, then the fp32
-   variant's prefill logits and 8 greedy tokens.  The routes differ in the
-   prefill's kernel (flash attention vs dense softmax; SSD kernel vs plain
-   chunked scan); every norm goes through the RMSNorm kernel on both, which
-   phase 3 holds against its plain version;
+   (``impl="ref"``) on the same weights: bf16 prefill logits; last in the
+   path, once its bf16 weights are released, the fp32 variant's prefill
+   logits and 8 greedy tokens.  The routes differ in the prefill's kernel
+   (flash attention vs dense softmax; SSD kernel vs plain chunked scan);
+   every norm goes through the RMSNorm kernel on both, which phase 3 holds
+   against its plain version.  An MoE router's expert choices are held to
+   the kernel route's (a flip at a near-tie moves a token's output whole),
+   and the choices a route would have made otherwise are counted;
 7. time both routes: the model's eager calls (prefill, decode) and the
    servers' graph replays (prefill, decode per step at T = 1 and 4, device
    busy over one decode replay), device time by kernel and the path's
@@ -216,6 +222,25 @@ P3. ``benchmarks/bench_policy.py``, in a fresh process (``chip_smoke.py
     launches), and the recorded before/after;
 P4. the phase's wall time;
 
+then phase Z, the MoE and hybrid families at full width (each model
+released before the next):
+
+Z1. qwen2-moe-a2.7b, all 24 layers (60 routed experts top-4, 4 shared;
+    RMSNorm and flash at H = Hkv = 16, hd 128) through phases 4-7 and
+    S2-S3 on gemma-2b's traffic; ``moe_sorted`` against ``moe_dense`` at
+    capacity_factor E/k (no slot dropped) on layer 0's weights, in bf16 and
+    fp32; C1 at T=4 on ``DenseKV`` (the reference's 45 doorbells), and K1
+    in ``dense_chunk8`` and ``paged_pt8_chunk8`` (BENCH_10's rows, paged
+    tokens equal dense-chunked ones);
+Z2. jamba-v0.1-52b at full width on one period (8 of 32 layers: attention
+    at 4, Mamba2 elsewhere, MoE of 16 experts top-2 every second layer;
+    RMSNorm, flash at H=32, Hkv=8, and SSD at N=16) through phases 4-7 and
+    S2-S3 on prompts of 257-512 left-padded to 512 (two chunks of 256),
+    max_seq 544, the bf16 tolerance set by a chunk-128 control; C1 at T=4
+    on ``DenseKV``;
+Z3. grok-1-314b at full width on 2 of 64 layers (gelu experts, top-2 of 8,
+    GQA 48/8): phase 6;
+
 every profiler window of the script (phase 5, C1, S2, K1-K2, T3 and the
 device times) matches torch.profiler's records to their launches by
 correlation id: a graph launch to its decoded nodes, an eager kernel
@@ -227,9 +252,10 @@ to 3 times);
 
 and last, time each kernel at its path's shape beside its bound, its plain
 version and one library call where there is one (the DMA-copy kernels are
-timed in D2), and the flash kernel at B=1, S=4096 beside
+timed in D2), the flash kernel at B=1, S=4096 beside
 ``scaled_dot_product_attention`` and its bound (one ``flash_attention
-long`` line).
+long`` line), and flash at Z1's and Z2's prefill shapes and the SSD scan
+at Z2's the same way, then the whole script's wall time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -288,6 +314,9 @@ from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_cost  # noqa: E4
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import mamba as mamba_block_module  # noqa: E402
+from repro_torch.models import moe as moe_module  # noqa: E402
+from repro_torch.models.layers import layer_params, map_params  # noqa: E402
+from repro_torch.models.moe import capacity, moe_dense, moe_sorted  # noqa: E402
 from repro_torch.runtime.server import (ContinuousBatchingServer,  # noqa: E402
                                         Request, Server)
 from repro_torch.runtime.trainer import Trainer  # noqa: E402
@@ -337,6 +366,14 @@ class ServePath:
     # route may then differ from the plain route by CONTROL_FACTOR times as
     # much as the control does, if that is more than bf16_rel_tol.
     control: Optional[Dict[str, Any]] = None
+    # the depth served, where the published one does not fit on one card
+    n_layers: Optional[int] = None
+
+    @property
+    def cfg(self) -> ModelConfig:
+        cfg = ARCHS[self.arch]
+        return (cfg if self.n_layers is None
+                else dataclasses.replace(cfg, n_layers=self.n_layers))
 
 
 # gemma-2b: prompts left-padded to 255.  The routes differ only in attention
@@ -357,6 +394,31 @@ MAMBA = ServePath("mamba2-780m", (257, 512, 800, 1024), 1056,
                   control={"ssm_chunk": 128})
 CONTROL_FACTOR = 3.0
 PATHS = (GEMMA, MAMBA)
+# phase Z, the MoE and hybrid families at full width.  Both routes run the
+# same MoE arithmetic, but a rounding that differs before the router can
+# flip an expert choice at a near-tie, and a flipped choice moves that
+# token's output whole: phase 6 holds every route to the kernel route's
+# expert choices (``experts_held``) and counts the choices a route would
+# have made otherwise.  qwen2-moe-a2.7b: all 24 layers (28.6 GB in bf16),
+# gemma-2b's traffic; flash at H = Hkv = 16, hd 128.
+QWEN_MOE = ServePath("qwen2-moe-a2.7b", (61, 128, 200, 255), 512,
+                     ("rms_norm", "flash_attention"), 5e-2, 1e-3)
+# jamba-v0.1-52b: one period of its 32 layers (1 attention, 7 Mamba2, 4 MoE
+# of 16 experts; 26.5 GB), prompts left-padded to 512, two SSD chunks of
+# 256, N = 16; the control halves the chunk, as mamba2-780m's
+JAMBA = ServePath("jamba-v0.1-52b", (257, 300, 400, 512), 544,
+                  ("rms_norm", "flash_attention", "ssd_scan"), 5e-2, 1e-3,
+                  control={"ssm_chunk": 128}, n_layers=8)
+# grok-1-314b: 2 of its 64 layers (22.9 GB), phase 6 only: gelu experts,
+# top-2 of 8, GQA 48/8
+GROK = ServePath("grok-1-314b", (61, 128, 200, 255), 512,
+                 ("rms_norm", "flash_attention"), 5e-2, 1e-3, n_layers=2)
+ZOO_PATHS = (QWEN_MOE, JAMBA)
+# Z1: moe_sorted at capacity_factor E/k (no slot dropped) against
+# moe_dense on layer 0's weights: in fp32 the two differ in the order of
+# their sums; in bf16 the sorted path rounds each expert's weighted output
+# and adds the k of them in bf16, the dense one sums in its product
+MOE_PATHS_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # the kernels behind each counted name, as torch.profiler names them: one
 # launch of each per counted launch (an SSD call at the path's shape, four
 # chunks, launches all five)
@@ -386,7 +448,10 @@ C2 = {"gemma-2b": (dict(n_requests=64, **C2_SPEC),
                       dict(batch_size=8, max_seq=1024))}
 C2_TS = (1, 4)
 C_KERNELS = {"gemma-2b": ("rms_norm", "flash_attention"),
-             "mamba2-780m": ("rms_norm", "ssd_scan")}
+             "mamba2-780m": ("rms_norm", "ssd_scan"),
+             "qwen2-moe-a2.7b": ("rms_norm", "flash_attention"),
+             "jamba-v0.1-52b": ("rms_norm", "flash_attention", "ssd_scan")}
+Z_C1_TS = (4,)
 C_RING = 1 << 16                     # session events kept for the spans
 LIVE_POLL_AFTER = 4                  # C2 realtime: poll once 4 have finished
 # phase K: chunked prefill and the paged KV backend, gemma-2b.  K1 is
@@ -460,10 +525,14 @@ DMA_DTYPE = torch.bfloat16
 DMA_BLOCK_ROWS = 256                 # the reference's default
 DMA_TILES = (8, 32, 128, 256)
 DMA_REPS = 20
-# copies queued before a bracket opens: while the card runs them the host
-# queues the bracketed ones, so a host stall just after the opening release
-# does not leave the card idle inside the bracket
 DMA_WARMUP = 3
+# each bracket opens behind a device-side spin (torch.cuda._sleep) longer
+# than the host's enqueue of the DMA_REPS bracketed copies, so the card is
+# still busy when the last of them is queued and no host stall leaves it
+# idle inside the bracket; the median of DMA_BRACKETS brackets is held to
+# the profiler's time
+DMA_SPIN_MS = 2.0
+DMA_BRACKETS = 3
 # a ProgressTracker bracket spans everything the stream runs between two
 # releases (the copies, the gaps between their launches, the second fence's
 # small kernels); torch.profiler sums the copy kernels alone
@@ -585,11 +654,14 @@ def ssd_inputs(B: int, S: int, H: int, P: int, N: int, dtype: torch.dtype,
 
 def check_kernels(device: torch.device) -> None:
     dtypes = (torch.bfloat16, torch.float32)
-    # the paths' shapes (gemma D=2048; mamba D=1536 and 3072, 4096 prefill
-    # rows), plus rows wide enough for 4, 8 and 16 vectors a thread
+    # the paths' shapes (gemma and qwen2-moe D=2048; mamba D=1536 and 3072,
+    # 4096 prefill rows; jamba D=4096 and its Mamba norm's 8192, 2048
+    # prefill rows; grok D=6144), plus rows wide enough for 4, 8 and 16
+    # vectors a thread
     for rows, D in ((4, 2048), (1020, 2048), (1020, 256), (5, 8192),
                     (7, 16384), (4, 1536), (4096, 1536), (4, 3072),
-                    (4096, 3072)):
+                    (4096, 3072), (4, 4096), (2048, 4096), (2048, 8192),
+                    (1020, 6144)):
         for dtype in dtypes:
             x, s = rms_inputs(rows, D, dtype, device)
             out, ref = rms_norm(x, s), rms_norm_ref(x, s)
@@ -603,21 +675,27 @@ def check_kernels(device: torch.device) -> None:
     # lengths that cut a 16x8 fragment or a 64-key tile
     cases += [(S, Hkv, hd) for S in (1, 17, 100, 1000) for hd in (64, 128, 256)
               for Hkv in (1, 2, 8)]
-    cases = [(4, S, Hkv, hd) for S, Hkv, hd in cases]
+    cases = [(4, S, 8, Hkv, hd) for S, Hkv, hd in cases]
     # the continuous engine's prefills: one request, gemma-2b's heads
     gemma = ARCHS[GEMMA.arch]
-    cases += [(1, S, gemma.n_kv_heads, gemma.hd) for S in PREFILL_LENS]
-    for B, S, Hkv, hd in cases:
+    cases += [(1, S, 8, gemma.n_kv_heads, gemma.hd) for S in PREFILL_LENS]
+    # phase Z's prefills (qwen2-moe H = Hkv = 16, jamba 32/8, grok 48/8, hd
+    # 128) and their engines' batch-1 prefills of C1 and K1
+    for path in ZOO_PATHS + (GROK,):
+        B, S, H, Hkv, hd = path_flash_shape(path)
+        cases += [(B, S, H, Hkv, hd)] + [(1, s, H, Hkv, hd) for s in (4, 8)]
+    for B, S, H, Hkv, hd in cases:
         for causal in (True, False):
             for dtype in dtypes:
-                q, k, v = flash_inputs(B, S, 8, Hkv, hd, dtype, device)
+                q, k, v = flash_inputs(B, S, H, Hkv, hd, dtype, device)
                 out = flash_attention(q, k, v, causal=causal)
                 ref = flash_attention_ref(q, k, v, causal=causal)
                 tol = TOL["flash_attention"][dtype]
                 torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
                                            atol=tol)
-                log(f"flash B={B} S={S} H=8 Hkv={Hkv} hd={hd} causal={causal} "
-                    f"{dtype}: max|err| {max_err(out, ref):.3e} (tol {tol})")
+                log(f"flash B={B} S={S} H={H} Hkv={Hkv} hd={hd} "
+                    f"causal={causal} {dtype}: max|err| "
+                    f"{max_err(out, ref):.3e} (tol {tol})")
     # (B, S, H, P, N, chunk): the mamba path's shape; one ragged chunk
     # (Q = S = 255); small chunks (Q = 16); H = 3; P < 64 and N < 128; 16
     # chunks, so the state is passed 15 times; chunks of 64 (one tile); 165
@@ -626,7 +704,14 @@ def check_kernels(device: torch.device) -> None:
     # chunk of 4 or 8 rows (a fraction of a 64-row tile), of 128 and 256,
     # and two chunks of 256
     mamba = ARCHS[MAMBA.arch]
-    for B, S, H, P, N, chunk in ((4, 1024, 48, 64, 128, 256),
+    jamba = JAMBA.cfg
+    # jamba's prefill (two chunks of 256 at N = 16) and its engine's
+    # batch-1 prefills of 4 and 8 rows
+    zoo = ((len(JAMBA.prompt_lens), max(JAMBA.prompt_lens), jamba.ssm_heads,
+            jamba.ssm_head_dim, jamba.ssm_state, jamba.ssm_chunk),) + tuple(
+        (1, S, jamba.ssm_heads, jamba.ssm_head_dim, jamba.ssm_state,
+         jamba.ssm_chunk) for S in (4, 8))
+    for B, S, H, P, N, chunk in zoo + ((4, 1024, 48, 64, 128, 256),
                                  (4, 255, 48, 64, 128, 256),
                                  (4, 64, 48, 64, 128, 16),
                                  (2, 512, 3, 64, 128, 256),
@@ -805,6 +890,22 @@ def copy_checks(device: torch.device) -> None:
         torch.cuda.synchronize()
 
 
+def spin_cycles(ms: float) -> Tuple[int, float]:
+    """The ``torch.cuda._sleep`` cycles of a spin of about ``ms`` on this
+    card (calibrated on a spin of 1e6 cycles), and the spin's measured ms."""
+    def spin_ms(cycles: int) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+    spin_ms(1_000_000)
+    cycles = int(ms / spin_ms(1_000_000) * 1_000_000)
+    return cycles, spin_ms(cycles)
+
+
 def copy_path(card: str, device: torch.device) -> List[Dict[str, Any]]:
     """D2's path: the controlled-DMA benchmark on one session, then the
     kernels' entries at the path shape."""
@@ -813,23 +914,34 @@ def copy_path(card: str, device: torch.device) -> List[Dict[str, Any]]:
     cost = dma_copy_cost(x)
     nbytes = cost.operand_bytes + cost.result_bytes
     bracket: Dict[Tuple[str, int], float] = {}
+    brackets: Dict[Tuple[str, int], List[float]] = {}
+    spin, spin_ms = (spin_cycles(DMA_SPIN_MS) if device.type == "cuda"
+                     else (0, 0.0))
+    log(f"{card} | D2 brackets: each behind a spin of {spin} cycles "
+        f"({spin_ms:.3f} ms), the median of {DMA_BRACKETS}")
     reset_launches()
     with TraceSession("dma.copy") as sess:
         for blk in DMA_TILES:
             for mode in MODES:
                 for _ in range(DMA_WARMUP):
                     y = dma_copy(x, mode, blk)
-                a = sess.progress.release(y)
-                for _ in range(DMA_REPS):
-                    y = dma_copy(x, mode, blk)
-                b = sess.progress.release(y)
-                bracket[mode, blk] = sess.progress.elapsed(a, b) / DMA_REPS * 1e3
+                runs = []
+                for _ in range(DMA_BRACKETS):
+                    if spin:
+                        torch.cuda._sleep(spin)
+                    a = sess.progress.release(y)
+                    for _ in range(DMA_REPS):
+                        y = dma_copy(x, mode, blk)
+                    b = sess.progress.release(y)
+                    runs.append(sess.progress.elapsed(a, b) / DMA_REPS * 1e3)
+                brackets[mode, blk] = runs
+                bracket[mode, blk] = float(np.median(runs))
                 if not same_bytes(y, x):
                     raise AssertionError(f"dma_copy {mode} block_rows={blk}: "
                                          f"the path's copy differs from x")
     counts = {m: launches[f"dma_copy_{m}"] for m in MODES}
-    want = (len(DMA_TILES) * (DMA_REPS + DMA_WARMUP) if device.type == "cuda"
-            else 0)
+    want = (len(DMA_TILES) * (DMA_WARMUP + DMA_BRACKETS * DMA_REPS)
+            if device.type == "cuda" else 0)
     if any(c != want for c in counts.values()):
         raise AssertionError(f"dma_copy launches {counts} in the path, "
                              f"expected {want} each")
@@ -843,7 +955,8 @@ def copy_path(card: str, device: torch.device) -> List[Dict[str, Any]]:
             occ[mode, blk] = grid, per_sm = (occupancy(x, mode, blk)
                                              if device.type == "cuda" else (0, 0))
             log(f"{card} | dma_copy_{mode} [{R}, {C}] bf16 block_rows={blk}: "
-                f"{ms:.5f} ms (profiler), {br:.5f} ms (semaphore bracket), "
+                f"{ms:.5f} ms (profiler), {br:.5f} ms (semaphore bracket, "
+                f"median of {', '.join(f'{r:.5f}' for r in brackets[mode, blk])}), "
                 f"{bound['bound_ms'] / ms:.1%} of the {bound['bound_ms']:.5f} "
                 f"ms bound, {ms / library_ms:.3f}x copy_, "
                 f"{nbytes / ms / 1e6:.1f} GB/s read+written; grid {grid} "
@@ -1363,15 +1476,58 @@ def ssd_held_to_plain(errors: List[Tuple[float, float]]) -> Iterator[None]:
         mamba_block_module.ssd_scan = kernel
 
 
-def compare_routes(path: ServePath, cfg: ModelConfig, params,
-                   device: torch.device, seed: int = 0) -> Dict[str, float]:
-    """Kernel route against plain route; every reading is logged before any
-    check fails."""
+@contextlib.contextmanager
+def experts_held(calls: List[torch.Tensor], flips: List[int]
+                 ) -> Iterator[None]:
+    """While open, the MoE router (``models/moe.py::_router``) records its
+    expert choices into ``calls``, call by call, if ``calls`` is empty at
+    entry; else it replays them in order: each call takes the recorded
+    choices, weighted by its own probabilities renormalised over them, and
+    appends to ``flips`` the tokens whose own choice differed."""
+    router = moe_module._router
+    record = not calls
+    replayed = iter(list(calls))
+
+    def held(p, cfg, x):
+        w, ids, aux = router(p, cfg, x)
+        if record:
+            calls.append(ids)
+            return w, ids, aux
+        want = next(replayed)
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        w = probs.gather(-1, want)
+        flips.append(int((ids != want).any(dim=-1).sum()))
+        return w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1e-9), \
+            want, aux
+
+    moe_module._router = held
+    try:
+        yield
+    finally:
+        moe_module._router = router
+
+
+def held_log(cfg: ModelConfig, label: str, calls: List[torch.Tensor],
+             flips: List[int]) -> None:
+    if calls:
+        pairs = sum(c.shape[0] * c.shape[1] for c in calls)
+        log(f"{cfg.name} {label}: expert choices held to the kernel route's "
+            f"({len(calls)} router calls); the route's own top-k differed "
+            f"at {sum(flips)} of {pairs} (token, router call) pairs")
+
+
+def compare_bf16(path: ServePath, cfg: ModelConfig, params,
+                 device: torch.device) -> Dict[str, float]:
+    """Phase 6's bf16 half: prefill logits of the kernel route against the
+    plain route (and the control) on the path's weights; every reading is
+    logged before any check fails."""
     toks = padded_prompts(requests(path, cfg.vocab_size), device)
     kern = get_model(cfg, impl="cuda", device=device)
     plain = get_model(cfg, impl="ref", device=device)
     ssd_errors: List[Tuple[float, float]] = []
-    with ssd_held_to_plain(ssd_errors):
+    calls: List[torch.Tensor] = []
+    flips: List[int] = []
+    with experts_held(calls, flips), ssd_held_to_plain(ssd_errors):
         _, lk = kern.prefill(params, toks, path.max_seq)
     if ssd_errors:
         worst = max(ssd_errors)
@@ -1379,7 +1535,9 @@ def compare_routes(path: ServePath, cfg: ModelConfig, params,
             f"own inputs: {len(ssd_errors)} layers, max|err| {worst[0]:.3e} "
             f"(|y| up to {max(m for _, m in ssd_errors):.2f}; rtol=atol="
             f"{TOL['ssd_scan'][getattr(torch, cfg.param_dtype)]})")
-    _, lp = plain.prefill(params, toks, path.max_seq)
+    with experts_held(calls, flips):
+        _, lp = plain.prefill(params, toks, path.max_seq)
+    held_log(cfg, "bf16 prefill, plain route", calls, flips)
     if not (torch.isfinite(lk).all() and lk.shape == (toks.shape[0], 1,
                                                        cfg.vocab_padded)):
         raise AssertionError(f"bf16 prefill logits: shape {tuple(lk.shape)} "
@@ -1390,7 +1548,10 @@ def compare_routes(path: ServePath, cfg: ModelConfig, params,
     if path.control:
         ctrl = get_model(dataclasses.replace(cfg, **path.control), impl="ref",
                          device=device)
-        _, lc = ctrl.prefill(params, toks, path.max_seq)
+        flips = []
+        with experts_held(calls, flips):
+            _, lc = ctrl.prefill(params, toks, path.max_seq)
+        held_log(cfg, "bf16 prefill, control", calls, flips)
         out["bf16_control_rel_l2"] = rel_c = rel_l2(lc, lp)
         limit = max(limit, CONTROL_FACTOR * rel_c)
         log(f"{cfg.name} bf16 prefill logits, control (plain route with "
@@ -1400,21 +1561,35 @@ def compare_routes(path: ServePath, cfg: ModelConfig, params,
     log(f"{cfg.name} bf16 prefill logits, kernel vs plain route: relative L2 "
         f"{rel:.3e} (limit {limit:.3e}), max|err| {max_err(lk, lp):.3e}")
     del lk, lp
+    if rel > limit:
+        raise AssertionError("bf16 prefill logits disagree between routes")
+    return out
 
+
+def compare_fp32(path: ServePath, cfg: ModelConfig, device: torch.device,
+                 seed: int = 0) -> float:
+    """Phase 6's fp32 half: the fp32 variant's prefill logits and 8 greedy
+    tokens, kernel route against plain route, on its own seeded weights."""
+    toks = padded_prompts(requests(path, cfg.vocab_size), device)
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
     kern32 = get_model(cfg32, impl="cuda", device=device)
     plain32 = get_model(cfg32, impl="ref", device=device)
     params32 = kern32.init_params(seed)
-    lk, tk = greedy(kern32, params32, toks, 8, path.max_seq)
-    lp, tp = greedy(plain32, params32, toks, 8, path.max_seq)
-    out["fp32_logits_max_err"] = err = max_err(lk, lp)
+    calls: List[torch.Tensor] = []
+    flips: List[int] = []
+    with experts_held(calls, flips):
+        lk, tk = greedy(kern32, params32, toks, 8, path.max_seq)
+    with experts_held(calls, flips):
+        lp, tp = greedy(plain32, params32, toks, 8, path.max_seq)
+    held_log(cfg, "fp32 prefill and decode, plain route", calls, flips)
+    err = max_err(lk, lp)
     log(f"{cfg.name} fp32 prefill logits max|err| {err:.3e} (tol "
         f"{path.fp32_abs_tol}); greedy tokens kernel {tk} plain {tp}")
-    if rel > limit:
-        raise AssertionError("bf16 prefill logits disagree between routes")
+    del params32, lk, lp
+    free()
     if err > path.fp32_abs_tol or tk != tp:
         raise AssertionError("fp32 routes disagree")
-    return out
+    return err
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1772,22 +1947,38 @@ def time_path(path: ServePath, cfg: ModelConfig, params,
     return out
 
 
-def drive_path(path: ServePath, card: str, device: torch.device
-               ) -> Dict[int, Dict[str, int]]:
-    """Phases 4-7 for one path; returns the kernel launches of its serves
-    at T=1 and T=4 (the replayed serve, and the capturing one)."""
+def init_path(path: ServePath, device: torch.device) -> Tuple[ModelConfig,
+                                                                 Any]:
+    """Phase 4: the path's config (its depth cut logged) and seeded
+    on-device weights."""
     log(f"phase 4: {path.arch} at full width, seeded on-device init")
-    cfg = ARCHS[path.arch]
+    cfg = path.cfg
+    if path.n_layers is not None:
+        log(f"{cfg.name}: depth cut to {path.n_layers} of "
+            f"{ARCHS[path.arch].n_layers} layers (all of one card's memory "
+            f"would not hold the published depth)")
     params = get_model(cfg, impl="cuda", device=device).init_params(seed=0)
     leaves = _leaves(params)
     log(f"{cfg.name}: {sum(t.numel() for t in leaves) / 1e9:.3f} B parameters, "
         f"{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} GB "
         f"({cfg.param_dtype}, fp32 where the reference keeps fp32)")
+    return cfg, params
+
+
+def drive_path(path: ServePath, card: str, device: torch.device,
+               then: Optional[Callable[[ModelConfig, Any], None]] = None
+               ) -> Dict[int, Dict[str, int]]:
+    """Phases 4-7 for one path, then ``then(cfg, params)`` on its weights;
+    phase 6's fp32 half runs last, once the bf16 weights are released (an
+    fp32 copy of the larger paths does not fit beside them).  Returns the
+    kernel launches of its serves at T=1 and T=4 (the replayed serve, and
+    the capturing one)."""
+    cfg, params = init_path(path, device)
     log(f"phase 5: {path.arch} Server.serve, the main path")
     with record_captures():                     # for phase S2-S3
         runs = serve_main_path(path, cfg, params, device)
-    log(f"phase 6: {path.arch} kernel route against the plain route")
-    compare_routes(path, cfg, params, device)
+    log(f"phase 6: {path.arch} kernel route against the plain route, bf16")
+    compare_bf16(path, cfg, params, device)
     log(f"phase 7: {path.arch} timings")
     t = time_path(path, cfg, params, device, runs)
     log(f"phase S2-S3: {path.arch} serving graphs decoded, their roofline")
@@ -1815,8 +2006,15 @@ def drive_path(path: ServePath, card: str, device: torch.device
     counts = {T: {"replay": run["serves"][1]["counts"],
                   "capture": run["serves"][0]["counts"]}
               for T, run in runs.items()}
-    del params, leaves, runs
-    torch.cuda.empty_cache()
+    del runs
+    free()
+    if then is not None:
+        then(cfg, params)
+    del params
+    free()
+    log(f"phase 6: {path.arch} kernel route against the plain route, fp32 "
+        f"at full depth, after the bf16 weights are released")
+    compare_fp32(path, cfg, device)
     return counts
 
 
@@ -1926,16 +2124,17 @@ def free() -> None:
 
 
 def c1_runs(card: str, arch: str, cfg: ModelConfig, params,
-            device: torch.device) -> Dict[str, int]:
-    """C1: the reference's load spec at T = 1, 4, 8, every replay
-    synchronous: a warm one, the measured one (counts zeroed just before,
-    read just after), then the same traffic once more under torch.profiler,
-    whose counted launches must equal the measured replay's and the
-    profiler's count of the same kernels.  Returns the T=1 measured
-    replay's kernel launches."""
+            device: torch.device, ts: Tuple[int, ...] = C1_TS
+            ) -> Dict[int, Dict[str, int]]:
+    """C1: the reference's load spec at each T of ``ts`` (1, 4, 8), every
+    replay synchronous: a warm one, the measured one (counts zeroed just
+    before, read just after), then the same traffic once more under
+    torch.profiler, whose counted launches must equal the measured replay's
+    and the profiler's count of the same kernels.  Returns the measured
+    replays' kernel launches by T."""
     kernels = C_KERNELS[arch]
-    t1_counts: Dict[str, int] = {}
-    for T in C1_TS:
+    counts_by_T: Dict[int, Dict[str, int]] = {}
+    for T in ts:
         eng = ContinuousBatchingServer(cfg, tokens_per_launch=T,
                                        device=device, params=params,
                                        **C1_ENGINE)
@@ -1984,14 +2183,14 @@ def c1_runs(card: str, arch: str, cfg: ModelConfig, params,
                                      f"{name} launches, the profiler saw "
                                      f"{by_sym} and the tracer lost "
                                      f"{dict(window.lost)}")
+        counts_by_T[T] = counts
         if T == 1:
-            t1_counts = counts
             check_against_oneshot(cfg, params, tickets, 4, C1_ENGINE[
                 "max_seq"], device, exact=False,
                 label=f"{cfg.name} C1 T=1 bf16")
         del eng
         free()
-    return t1_counts
+    return counts_by_T
 
 
 def c1_fp32(card: str, device: torch.device) -> None:
@@ -2153,7 +2352,8 @@ def continuous_path(card: str, device: torch.device
             seed=0)
         log(f"phase C1: {cfg.name} ContinuousBatchingServer on "
             f"bench_loadtest's spec {C1_SPEC}, {C1_ENGINE}")
-        counts[path.arch] = c1_runs(card, path.arch, cfg, params, device)
+        counts[path.arch] = c1_runs(card, path.arch, cfg, params,
+                                    device)[1]
         log(f"phase C2: {cfg.name} realistic traffic {C2[path.arch]}")
         c2_runs(card, path.arch, cfg, params, device)
         del params
@@ -2994,6 +3194,72 @@ def tuner_path(card: str, device: torch.device) -> None:
     log(f"{card} | P4 phase P: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------- phase Z
+def moe_paths_agree(card: str, cfg: ModelConfig, params,
+                    device: torch.device) -> None:
+    """Z1: on layer 0's MoE weights, ``moe_sorted`` at capacity_factor E/k
+    (every slot kept) against ``moe_dense`` on seeded inputs of the path's
+    prefill shape, in bf16 and with weights and inputs in fp32."""
+    p = layer_params(params["layers"], 0)["moe"]
+    full = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    B, S = len(QWEN_MOE.prompt_lens), max(QWEN_MOE.prompt_lens)
+    if capacity(full, S) != S:
+        raise AssertionError(f"capacity {capacity(full, S)} at S={S}")
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn(B, S, cfg.d_model, generator=gen, device=device)
+    for dtype, tol in MOE_PATHS_TOL.items():
+        pd = map_params(lambda t: t.to(dtype) if t.dtype != torch.float32
+                        else t, p)
+        ys, _ = moe_sorted(pd, full, x.to(dtype))
+        yd, _ = moe_dense(pd, full, x.to(dtype))
+        err = rel_l2(ys, yd)
+        log(f"{card} | {cfg.name} layer 0 moe_sorted (C = S = {S}, "
+            f"{cfg.n_experts} experts, top-{cfg.top_k}) against moe_dense, "
+            f"B={B} {dtype}: relative L2 {err:.3e} (limit {tol}), max|err| "
+            f"{max_err(ys, yd):.3e}, max|y| {yd.float().abs().max().item():.3f}")
+        if not torch.isfinite(ys).all() or err > tol:
+            raise AssertionError(f"{cfg.name}: moe_sorted and moe_dense "
+                                 f"disagree in {dtype}")
+        del pd, ys, yd
+    free()
+
+
+def zoo_path(card: str, device: torch.device
+             ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Phase Z: Z1 qwen2-moe-a2.7b and Z2 jamba-v0.1-52b through phases 4-7
+    and S2-S3, then their engines; Z3 grok-1-314b's phase 6.  Each model is
+    released before the next.  Returns the serves' kernel launches by arch
+    (as ``drive_path``'s) and the engines' (C1 at T=4, K1) by arch."""
+    counts: Dict[str, Any] = {}
+    engines: Dict[str, Any] = {}
+
+    def z1(cfg: ModelConfig, params) -> None:
+        log(f"phase Z1: {cfg.name} moe_sorted against moe_dense")
+        moe_paths_agree(card, cfg, params, device)
+        log(f"phase Z1: {cfg.name} C1 at T={Z_C1_TS} on DenseKV")
+        engines[QWEN_MOE.arch] = {"C1": c1_runs(
+            card, QWEN_MOE.arch, cfg, params, device, Z_C1_TS)}
+        log(f"phase Z1: {cfg.name} K1 {K1_SPEC}, {K1_ENGINE}: "
+            f"dense_chunk8 and PagedKV")
+        engines[QWEN_MOE.arch]["K1"] = k1_runs(card, cfg, params, device)
+
+    def z2(cfg: ModelConfig, params) -> None:
+        log(f"phase Z2: {cfg.name} C1 at T={Z_C1_TS} on DenseKV")
+        engines[JAMBA.arch] = {"C1": c1_runs(card, JAMBA.arch, cfg, params,
+                                             device, Z_C1_TS)}
+
+    for path, then in ((QWEN_MOE, z1), (JAMBA, z2)):
+        log(f"phase Z: {path.arch}")
+        counts[path.arch] = drive_path(path, card, device, then)
+    log(f"phase Z3: {GROK.arch}, kernel route against the plain route")
+    cfg, params = init_path(GROK, device)
+    compare_bf16(GROK, cfg, params, device)
+    del params
+    free()
+    compare_fp32(GROK, cfg, device)
+    return counts, engines
+
+
 # ---------------------------------------------------------------- kernels
 def roofline(cost: KernelCost) -> Dict[str, Any]:
     """Bound of bf16 work on one H100 SXM (NVIDIA's published peaks): the
@@ -3026,26 +3292,35 @@ def rms_entry(device: torch.device) -> Dict[str, Any]:
             "shape": f"rows={rows} D={D} bf16 (gemma-2b prefill)"}
 
 
-def flash_entry(device: torch.device) -> Dict[str, Any]:
-    cfg = ARCHS[GEMMA.arch]
-    B, S, H, Hkv, hd = (len(GEMMA.prompt_lens), max(GEMMA.prompt_lens),
-                        cfg.n_heads, cfg.n_kv_heads, cfg.hd)
-    dtype = torch.bfloat16
-    q, k, v = flash_inputs(B, S, H, Hkv, hd, dtype, device, seed=1)
+def flash_at(device: torch.device, B: int, S: int, H: int, Hkv: int,
+             hd: int) -> Dict[str, Any]:
+    """The flash kernel at one causal bf16 shape: its device time beside its
+    plain version, SDPA on the same inputs and its bound."""
+    q, k, v = flash_inputs(B, S, H, Hkv, hd, torch.bfloat16, device, seed=1)
     err = max_err(flash_attention(q, k, v), flash_attention_ref(q, k, v))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True))
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
-            "max_abs_err": err,
+    return {"max_abs_err": err,
             "ms": device_ms(lambda: flash_attention(q, k, v)),
             "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v)),
             "call_ms": time_ms(lambda: flash_attention(q, k, v), reps=50),
             **roofline(flash_attention_cost(q, k, v)),
             "library_ms": library_ms,
             "shape": f"B={B} S={S} H={H} Hkv={Hkv} hd={hd} causal bf16"}
+
+
+def path_flash_shape(path: ServePath) -> Tuple[int, int, int, int, int]:
+    cfg = path.cfg
+    return (len(path.prompt_lens), max(path.prompt_lens), cfg.n_heads,
+            cfg.n_kv_heads, cfg.hd)
+
+
+def flash_entry(device: torch.device) -> Dict[str, Any]:
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:77",
+            **flash_at(device, *path_flash_shape(GEMMA))}
 
 
 def flash_long(card: str, device: torch.device, S: int = 4096
@@ -3076,23 +3351,20 @@ def flash_long(card: str, device: torch.device, S: int = 4096
             "ms": ms, "library_ms": sdpa_ms, "max_abs_err": err, **bound}
 
 
-def ssd_entry(device: torch.device) -> Dict[str, Any]:
-    cfg = ARCHS[MAMBA.arch]
-    B, S, H, P, N, Q = (len(MAMBA.prompt_lens), max(MAMBA.prompt_lens),
+def ssd_at(device: torch.device, path: ServePath) -> Dict[str, Any]:
+    """The SSD scan at a path's prefill shape: the call's five kernels by
+    step beside the plain chunked scan and the bound."""
+    cfg = path.cfg
+    B, S, H, P, N, Q = (len(path.prompt_lens), max(path.prompt_lens),
                         cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
                         cfg.ssm_chunk)
-    dtype = torch.bfloat16
-    args = ssd_inputs(B, S, H, P, N, dtype, device, seed=1)
+    args = ssd_inputs(B, S, H, P, N, torch.bfloat16, device, seed=1)
     err = max_err(ssd_scan(*args, chunk=Q)[0], ssd_chunked(*args, chunk=Q)[0])
-    # the call's five kernels, by step
     steps = {}
     for key, ms in device_ms_by_kernel(lambda: ssd_scan(*args, chunk=Q)).items():
         m = re.search(r"ssd_scan_(\w+?)_kernel", key)
         steps[m.group(1) if m else key] = ms
-    return {"name": "ssd_scan", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
-            "replaces": "src/repro/kernels/ssd_scan/kernel.py:84",
-            "max_abs_err": err,
+    return {"max_abs_err": err,
             "ms": sum(steps.values()),
             "steps_ms": steps,
             "plain_ms": device_ms(lambda: ssd_chunked(*args, chunk=Q), reps=5),
@@ -3102,11 +3374,38 @@ def ssd_entry(device: torch.device) -> Dict[str, Any]:
             "shape": f"B={B} S={S} H={H} P={P} N={N} chunk={Q} bf16"}
 
 
+def ssd_entry(device: torch.device) -> Dict[str, Any]:
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan/kernel.py:84",
+            **ssd_at(device, MAMBA)}
+
+
+def zoo_shapes(card: str, device: torch.device, entries: Dict[str, Any]
+               ) -> None:
+    """Flash at Z1's and Z2's prefill shapes and the SSD scan at Z2's (N =
+    16: the kernels tile N in halves of 64), each beside its bound (and
+    SDPA for flash), into ``entries[name]["zoo_shapes"]``."""
+    for path in ZOO_PATHS:
+        got = {"flash_attention": flash_at(device, *path_flash_shape(path))}
+        if "ssd_scan" in path.kernels:
+            got["ssd_scan"] = ssd_at(device, path)
+        for name, r in got.items():
+            entries[name].setdefault("zoo_shapes", {})[path.arch] = r
+            log(f"{card} | {name} {path.arch} at {r['shape']}: kernel "
+                f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library "
+                f"{r['library_ms']}, bound {r['bound_ms']:.5f} ms "
+                f"({r['bound_by']}): {r['bound_ms'] / r['ms']:.1%} of the "
+                f"bound; max|err| {r['max_abs_err']:.3e}"
+                + (f"; steps {r['steps_ms']}" if "steps_ms" in r else ""))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    start = time.perf_counter()
     device = resolve_device("cuda")
     card = card_line()
     print(card)
@@ -3144,13 +3443,20 @@ def main() -> int:
     log("phase P: the submission-policy tuner, gemma-2b at full width")
     tuner_path(card, device)
 
+    log("phase Z: the MoE and hybrid families at full width")
+    t0 = time.perf_counter()
+    z_counts, z_engines = zoo_path(card, device)
+    counts.update(z_counts)
+    log(f"{card} | phase Z: {time.perf_counter() - t0:.1f} s")
+
     log("kernels at their paths' shapes")
     kernels = [rms_entry(device), flash_entry(device), ssd_entry(device)]
     kernels[1]["long_s"] = flash_long(card, device)
+    zoo_shapes(card, device, {e["name"]: e for e in kernels})
     for e in kernels:
         # launches: the replayed T=1 serves of every path that runs the
-        # kernel; by path, every serve, and the continuous engine's
-        # measured C1 replay at T=1
+        # kernel; by path, every serve, the continuous engine's measured C1
+        # replay at T=1 (phase Z's at T=4) and K1's measured replays
         e["launches_by_path"] = {
             arch: {f"T={T} {serve}": c.get(e["name"], 0)
                    for T, by_serve in by_T.items()
@@ -3167,6 +3473,14 @@ def main() -> int:
               for mode, c in k_counts.items() if c.get(e["name"], 0)}
         if k1:
             e["launches_by_path"][f"{GEMMA.arch} kv"] = k1
+        for arch, by_engine in z_engines.items():
+            z = {f"C1 T={T} measured replay": c[e["name"]]
+                 for T, c in by_engine["C1"].items() if c.get(e["name"], 0)}
+            z.update((f"K1 {mode} measured replay", c[e["name"]])
+                     for mode, c in by_engine.get("K1", {}).items()
+                     if c.get(e["name"], 0))
+            if z:
+                e["launches_by_path"][f"{arch} engines"] = z
         log(f"{card} | {e['name']} at {e['shape']}: device {e['ms']:.5f} ms "
             f"(per call with host {e['call_ms']:.5f} ms), bound "
             f"{e['bound_ms']:.5f} ms ({e['bound_by']}), plain "
@@ -3178,6 +3492,7 @@ def main() -> int:
         e["ptxas"] = {name: r for name, r in ptxas.items()
                       if name.split("<")[0] in REDESIGNED
                       and e["name"] in name}
+    log(f"{card} | chip_smoke: {time.perf_counter() - start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -196,10 +196,13 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
 # --------------------------------------------------------------------------
 def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int,
                   dtype: torch.dtype, device: torch.device,
-                  per_slot: bool = False) -> Dict[str, torch.Tensor]:
+                  per_slot: bool = False, n_layers: Optional[int] = None
+                  ) -> Dict[str, torch.Tensor]:
     """KV cache [L, B, S, Hkv, hd] + current length: a scalar int32, or
-    one a sequence (``[B]``) with ``per_slot``."""
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+    one a sequence (``[B]``) with ``per_slot``.  ``L`` is ``n_layers``,
+    default the config's."""
+    L = cfg.n_layers if n_layers is None else n_layers
+    shape = (L, batch, max_seq, cfg.n_kv_heads, cfg.hd)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),

@@ -84,12 +84,12 @@ class MambaLM:
         _train_route(self)
         cfg = self.cfg
 
-        def block(lp: Params, y: torch.Tensor) -> torch.Tensor:
+        def block(lp: Params, y: torch.Tensor) -> Tuple[torch.Tensor, None]:
             return y + mamba_block(lp["mamba"], cfg,
                                    plain_rms_norm(lp["ln"], y), self.impl,
-                                   norm=plain_rms_norm)
+                                   norm=plain_rms_norm), None
 
-        x = train_layers(params["layers"], x, cfg.remat, block)
+        x, _ = train_layers(params["layers"], x, cfg.remat, block)
         return plain_rms_norm(params["final_norm"], x)
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]

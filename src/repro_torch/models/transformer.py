@@ -1,21 +1,22 @@
-"""Decoder-only transformer LM, dense path.
+"""Decoder-only transformer LM, dense and MoE.
 
 Parameters are a nested dict with the reference's structure
 (``repro.models.transformer.TransformerLM.init_params``): per-layer tensors
 are stacked on a leading L axis, and the reference's scan over layers becomes
-a loop over that axis.  Families and features this slice lacks (MoE,
-non-RoPE positions) raise ``NotImplementedError``.
+a loop over that axis.  A config with ``n_experts`` puts an MoE block
+(``models/moe.py``) in place of every layer's MLP, as the reference does.
+Positions other than RoPE raise ``NotImplementedError``.
 
 :meth:`TransformerLM.loss` is the train path (``hidden_states`` in
 ``mode="train"``): the reference's plain route (``impl="ref"``) under
 autograd, each layer's views taken with one ``unbind`` per stacked leaf,
 each layer under activation checkpointing when ``cfg.remat``, and plain
-norms (the kernels have no backward).  The MoE aux term does not arise:
-MoE is not ported.
+norms (the kernels have no backward).  With MoE it adds
+``MOE_AUX_COEF`` times the layers' mean load-balancing loss.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.utils.checkpoint
@@ -28,18 +29,19 @@ from .attention import (IMPLS, DecodePositions, ExtendPositions, attention,
 from .layers import (Norm, Params, Spec, cross_entropy_loss, dtype_of, embed,
                      embedding_specs, init_from_specs, layer_params, mlp,
                      plain_rms_norm, rms_norm, unbind_layers, unembed)
+from .moe import moe_block, moe_specs
 
-__all__ = ["TransformerLM", "param_specs", "train_layers"]
+__all__ = ["TransformerLM", "param_specs", "attention_specs", "mlp_specs",
+           "train_layers", "MOE_AUX_COEF"]
+
+MOE_AUX_COEF = 0.01
 
 
-def param_specs(cfg: ModelConfig) -> Any:
-    """The param tree for ``cfg``, one :class:`Spec` a leaf.
-
-    The structure, shapes and scales are the reference's; a std of 0 marks
-    a zero-initialised norm scale (``(1 + scale)`` gain).
-    """
-    L, d, h, hk, hd, ff = (cfg.n_layers, cfg.d_model, cfg.n_heads_padded,
-                           cfg.n_kv_heads, cfg.hd, cfg.d_ff)
+def attention_specs(cfg: ModelConfig, n_layers: int) -> Params:
+    """``repro.models.attention.init_attention`` stacked over
+    ``n_layers``."""
+    L, d, h, hk, hd = (n_layers, cfg.d_model, cfg.n_heads_padded,
+                       cfg.n_kv_heads, cfg.hd)
     attn = {"wq": Spec((L, d, h, hd), d ** -0.5),
             "wk": Spec((L, d, hk, hd), d ** -0.5),
             "wv": Spec((L, d, hk, hd), d ** -0.5),
@@ -47,43 +49,79 @@ def param_specs(cfg: ModelConfig) -> Any:
     if cfg.qk_norm:
         attn["q_norm"] = {"scale": Spec((L, hd), 0.0)}
         attn["k_norm"] = {"scale": Spec((L, hd), 0.0)}
-    return {
-        "emb": embedding_specs(cfg),
-        "layers": {"ln1": {"scale": Spec((L, d), 0.0)}, "attn": attn,
-                   "ln2": {"scale": Spec((L, d), 0.0)},
-                   "mlp": {"w_gate": Spec((L, d, ff), d ** -0.5),
-                           "w_up": Spec((L, d, ff), d ** -0.5),
-                           "w_down": Spec((L, ff, d), ff ** -0.5)}},
-        "final_norm": {"scale": Spec((d,), 0.0)},
-    }
+    return attn
+
+
+def mlp_specs(cfg: ModelConfig, n_layers: int) -> Params:
+    """``repro.models.layers.init_mlp`` stacked over ``n_layers``."""
+    L, d, ff = n_layers, cfg.d_model, cfg.d_ff
+    return {"w_gate": Spec((L, d, ff), d ** -0.5),
+            "w_up": Spec((L, d, ff), d ** -0.5),
+            "w_down": Spec((L, ff, d), ff ** -0.5)}
+
+
+def param_specs(cfg: ModelConfig) -> Any:
+    """The param tree for ``cfg``, one :class:`Spec` a leaf.
+
+    The structure, shapes and scales are the reference's; a std of 0 marks
+    a zero-initialised norm scale (``(1 + scale)`` gain).  With
+    ``n_experts`` every layer holds ``"moe"`` in place of ``"mlp"``.
+    """
+    L, d = cfg.n_layers, cfg.d_model
+    layers = {"ln1": {"scale": Spec((L, d), 0.0)},
+              "attn": attention_specs(cfg, L),
+              "ln2": {"scale": Spec((L, d), 0.0)}}
+    if cfg.n_experts:
+        layers["moe"] = moe_specs(cfg, L)
+    else:
+        layers["mlp"] = mlp_specs(cfg, L)
+    return {"emb": embedding_specs(cfg), "layers": layers,
+            "final_norm": {"scale": Spec((d,), 0.0)}}
+
+
+def ffn(p: Params, cfg: ModelConfig, h: torch.Tensor
+        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A block's feed-forward half on the normed ``h``: the MoE block where
+    ``p`` holds one (with its aux loss), else the MLP (aux None)."""
+    if "moe" in p:
+        return moe_block(p["moe"], cfg, h)
+    return mlp(p["mlp"], h, cfg.act), None
 
 
 def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, impl: str, norm: Norm = rms_norm
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One block; returns (x, k, v) with the block's cache entries."""
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             Optional[torch.Tensor]]:
+    """One block; returns (x, k, v, aux) with the block's cache entries and
+    its MoE aux loss (None without MoE)."""
     a, k, v = attention(p["attn"], cfg, norm(p["ln1"], x), positions,
                         impl=impl, norm=norm)
     x = x + a
-    return x + mlp(p["mlp"], norm(p["ln2"], x), cfg.act), k, v
+    m, aux = ffn(p, cfg, norm(p["ln2"], x))
+    return x + m, k, v, aux
 
 
 def train_layers(layers: Params, x: torch.Tensor, remat: bool,
-                 block: Callable[[Params, torch.Tensor], torch.Tensor]
-                 ) -> torch.Tensor:
-    """``block(layer_params, x)`` over the stacked layers for the train
-    path: per-layer views by :func:`~.layers.unbind_layers`, each layer
-    recomputed in the backward when ``remat`` (the reference's
-    ``jax.checkpoint`` of its scan body).  The RNG state is not saved: no
-    step draws random numbers, and reading it is illegal in a CUDA Graph
+                 block: Callable[[Params, torch.Tensor],
+                                 Tuple[torch.Tensor, Optional[torch.Tensor]]]
+                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """``block(layer_params, x) -> (x, aux)`` over the stacked layers for
+    the train path: per-layer views by :func:`~.layers.unbind_layers`, each
+    layer recomputed in the backward when ``remat`` (the reference's
+    ``jax.checkpoint`` of its scan body).  Returns x and the layers' aux
+    losses (those that are not None).  The RNG state is not saved: no step
+    draws random numbers, and reading it is illegal in a CUDA Graph
     capture."""
+    auxs: List[torch.Tensor] = []
     for lp in unbind_layers(layers):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(
+            x, aux = torch.utils.checkpoint.checkpoint(
                 block, lp, x, use_reentrant=False, preserve_rng_state=False)
         else:
-            x = block(lp, x)
-    return x
+            x, aux = block(lp, x)
+        if aux is not None:
+            auxs.append(aux)
+    return x, auxs
 
 
 def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -91,7 +129,7 @@ def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  pos: DecodePositions) -> torch.Tensor:
     x = x + decode_attention(p["attn"], cfg, rms_norm(p["ln1"], x),
                              k_cache, v_cache, pos)
-    return x + mlp(p["mlp"], rms_norm(p["ln2"], x), cfg.act)
+    return x + ffn(p, cfg, rms_norm(p["ln2"], x))[0]
 
 
 def block_extend(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -99,7 +137,15 @@ def block_extend(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  pos: ExtendPositions) -> torch.Tensor:
     x = x + extend_attention(p["attn"], cfg, rms_norm(p["ln1"], x),
                              k_cache, v_cache, pos)
-    return x + mlp(p["mlp"], rms_norm(p["ln2"], x), cfg.act)
+    return x + ffn(p, cfg, rms_norm(p["ln2"], x))[0]
+
+
+def mean_aux(auxs: List[torch.Tensor], device: torch.device) -> torch.Tensor:
+    """The mean of the layers' aux losses; 0 without MoE, as the
+    reference's mean over zeros."""
+    if not auxs:
+        return torch.zeros((), dtype=torch.float32, device=device)
+    return torch.stack(auxs).mean()
 
 
 def _train_route(model: Any) -> None:
@@ -110,7 +156,7 @@ def _train_route(model: Any) -> None:
 
 
 class TransformerLM:
-    """Dense decoder-only LM on one device.
+    """Dense or MoE decoder-only LM on one device.
 
     ``impl`` selects the prefill attention route (``"cuda"``: the flash
     kernel; ``"ref"``: dense softmax).  ``device`` defaults to ``cuda`` and
@@ -119,9 +165,10 @@ class TransformerLM:
 
     def __init__(self, cfg: ModelConfig, impl: str = "cuda",
                  device: Optional[Union[str, torch.device]] = None) -> None:
-        if cfg.family != "dense" or cfg.n_experts:
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense family is ported")
+                f"{cfg.name}: TransformerLM serves the dense and moe "
+                f"families, not {cfg.family!r}")
         if cfg.pos_embed != "rope":
             raise NotImplementedError(
                 f"{cfg.name}: pos_embed={cfg.pos_embed!r} is not ported")
@@ -138,9 +185,12 @@ class TransformerLM:
                                self.device, seed)
 
     # ---- forward ---------------------------------------------------------
-    def hidden_states(self, params: Params, tokens: torch.Tensor,
-                      mode: str = "serve") -> torch.Tensor:
-        """Final-normed hidden states [B, S, D] of the whole sequence.
+    def hidden_states_and_aux(self, params: Params, tokens: torch.Tensor,
+                              mode: str = "serve"
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Final-normed hidden states [B, S, D] of the whole sequence and
+        the layers' mean MoE aux loss (0 without MoE): the reference's
+        ``hidden_states``.
 
         ``mode="train"`` is the train path (see the module's docstring);
         it needs the plain route, ``impl="ref"``."""
@@ -150,27 +200,41 @@ class TransformerLM:
         if mode == "train":
             _train_route(self)
 
-            def block(lp: Params, y: torch.Tensor) -> torch.Tensor:
-                return block_forward(lp, cfg, y, positions, self.impl,
-                                     plain_rms_norm)[0]
+            def block(lp: Params, y: torch.Tensor
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                y, _, _, aux = block_forward(lp, cfg, y, positions,
+                                             self.impl, plain_rms_norm)
+                return y, aux
 
-            x = train_layers(params["layers"], x, cfg.remat, block)
-            return plain_rms_norm(params["final_norm"], x)
+            x, auxs = train_layers(params["layers"], x, cfg.remat, block)
+            return (plain_rms_norm(params["final_norm"], x),
+                    mean_aux(auxs, x.device))
+        auxs = []
         for i in range(cfg.n_layers):
-            x, _, _ = block_forward(layer_params(params["layers"], i), cfg, x,
-                                    positions, self.impl)
-        return rms_norm(params["final_norm"], x)
+            x, _, _, aux = block_forward(layer_params(params["layers"], i),
+                                         cfg, x, positions, self.impl)
+            if aux is not None:
+                auxs.append(aux)
+        return rms_norm(params["final_norm"], x), mean_aux(auxs, x.device)
+
+    def hidden_states(self, params: Params, tokens: torch.Tensor,
+                      mode: str = "serve") -> torch.Tensor:
+        """The hidden states of :meth:`hidden_states_and_aux`."""
+        return self.hidden_states_and_aux(params, tokens, mode)[0]
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean next-token cross entropy of ``batch`` (``tokens`` and
-        ``labels``, [B, S]) and its metrics, as the reference's
-        ``TransformerLM.loss`` (``aux`` is 0: no MoE)."""
+        ``labels``, [B, S]) plus, with MoE, ``MOE_AUX_COEF`` times the
+        mean aux loss, and its metrics, as the reference's
+        ``TransformerLM.loss``."""
         cfg = self.cfg
-        x = self.hidden_states(params, batch["tokens"], mode="train")
+        x, aux = self.hidden_states_and_aux(params, batch["tokens"],
+                                            mode="train")
         ce = cross_entropy_loss(params["emb"], x, batch["labels"],
                                 cfg.loss_chunk, vocab_valid=cfg.vocab_size)
-        return ce, {"ce": ce, "aux": torch.zeros_like(ce)}
+        total = ce + MOE_AUX_COEF * aux if cfg.n_experts else ce
+        return total, {"ce": ce, "aux": aux}
 
     # ---- serving ---------------------------------------------------------
     def init_decode_state(self, batch: int, max_seq: int
@@ -230,8 +294,8 @@ class TransformerLM:
             state["k"].zero_()
             state["v"].zero_()
         for i in range(cfg.n_layers):
-            x, k, v = block_forward(layer_params(params["layers"], i), cfg, x,
-                                    positions, self.impl)
+            x, k, v, _ = block_forward(layer_params(params["layers"], i),
+                                       cfg, x, positions, self.impl)
             state["k"][i, :, :S] = k
             state["v"][i, :, :S] = v
         x = rms_norm(params["final_norm"], x)

@@ -163,7 +163,7 @@ def test_params_from_jax_keeps_fp32_leaves_in_a_bf16_model():
 
 
 def test_unported_families_raise():
-    for family in ("moe", "hybrid", "audio", "vlm"):
+    for family in ("audio", "vlm"):
         cfg = dataclasses.replace(SMOKE_ARCHS[ARCH], family=family)
         with pytest.raises(NotImplementedError):
             get_model(cfg, device="cpu")

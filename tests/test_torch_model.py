@@ -136,12 +136,15 @@ def test_decode_write_clamps_at_cache_end():
 
 
 def test_unported_family_raises():
-    moe = dataclasses.replace(SMOKE_ARCHS["gemma-2b"], family="moe")
+    audio = dataclasses.replace(SMOKE_ARCHS["gemma-2b"], family="audio")
     with pytest.raises(NotImplementedError):
-        get_model(moe, device="cpu")
+        get_model(audio, device="cpu")
     with pytest.raises(NotImplementedError):
-        TransformerLM(dataclasses.replace(SMOKE_ARCHS["gemma-2b"], n_experts=4),
-                      device="cpu")
+        TransformerLM(dataclasses.replace(SMOKE_ARCHS["gemma-2b"],
+                                          family="hybrid"), device="cpu")
+    with pytest.raises(NotImplementedError):
+        TransformerLM(dataclasses.replace(SMOKE_ARCHS["gemma-2b"],
+                                          pos_embed="learned"), device="cpu")
 
 
 def test_params_from_jax_checks_shapes():
