@@ -19,8 +19,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    16 chunks, H = 3 and 11, P < 64 and N < 128), and at the continuous
    engine's batch-1 prefills (flash at S = 4, 8, 128, 256 and 512 with
    gemma-2b's heads; the SSD scan at chunk = S = 4 and 8 and at S = 128,
-   256 and 512), and at phase Z's shapes (flash at qwen2-moe's, jamba's and
-   grok's heads, B=4 and batch 1; the SSD scan at jamba's N = 16);
+   256 and 512), at phase Z's shapes (flash at qwen2-moe's, jamba's and
+   grok's heads, B=4 and batch 1; the SSD scan at jamba's N = 16), and at
+   phase W's (flash at whisper's encoder, 1500 frames non-causal, its
+   decoder's 375 tokens causal and its cross-attention, 375 queries against
+   1500 frames; llava's image prefill, S = 640 at GQA 56/8; K/V of another
+   length than the queries, (Sq, Skv) of (1, 1500), (17, 100), (100, 17)
+   and (375, 1) at hd 64 and 128; a causal call with Skv != Sq raises);
 
 then the paper's DMA case study (section 6.2):
 
@@ -241,6 +246,28 @@ Z2. jamba-v0.1-52b at full width on one period (8 of 32 layers: attention
 Z3. grok-1-314b at full width on 2 of 64 layers (gelu experts, top-2 of 8,
     GQA 48/8): phase 6;
 
+then phase W, the audio and vlm families at full width (each model
+released before the next), through ``runtime/steps.py``'s
+``make_prefill_step`` and ``make_decode_step``, each step one CUDA Graph
+replay rung as a doorbell on one TraceSession (33 a path: the prefill and
+32 greedy decode steps; counts zeroed just before, read just after):
+
+W1. whisper-medium at full width and depth (24 encoder and 24 decoder
+    layers, d 1024, 16 heads of 64): ``make_input_specs``' prefill batch at
+    Whisper's 30 s (frames [4, 1500, 1024] bf16 and 375 tokens), max_seq
+    512.  The tokens equal an eager greedy loop's; the counted launches are
+    72 flash and 122 RMSNorm a prefill, 73 RMSNorm a decode step, and equal
+    torch.profiler's records of a prefill and a decode replay by name; the
+    decode graph decoded equals one replay's records (as S2), its roofline
+    (as S3); the replays' times and device busy share; phase 6's bf16 route
+    gap within 3e-2, then, with the bf16 weights released, the fp32
+    variant's logits within 1e-3 and 8 greedy tokens equal;
+W2. llava-next-34b at full width on 8 of its 60 layers (d 7168, GQA 56/8
+    of 128, d_ff 20480, untied vocab 64000; 10.8 GB in bf16): the text path
+    through phases 4-7 and S2-S3 on gemma-2b's traffic, then an image
+    prompt of 576 patch embeddings and 64 tokens (max_seq 704) through the
+    steps with W1's checks; its fp32 half last;
+
 every profiler window of the script (phase 5, C1, S2, K1-K2, T3 and the
 device times) matches torch.profiler's records to their launches by
 correlation id: a graph launch to its decoded nodes, an eager kernel
@@ -255,7 +282,9 @@ version and one library call where there is one (the DMA-copy kernels are
 timed in D2), the flash kernel at B=1, S=4096 beside
 ``scaled_dot_product_attention`` and its bound (one ``flash_attention
 long`` line), and flash at Z1's and Z2's prefill shapes and the SSD scan
-at Z2's the same way, then the whole script's wall time.
+at Z2's the same way, flash at W's (whisper's encoder and cross-attention,
+llava's image prefill) beside SDPA and the bound, then the whole script's
+wall time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device the
@@ -295,8 +324,8 @@ from repro_torch.core import (H100_SXM, INLINE_THRESHOLD_DEFAULT,  # noqa: E402
                               TraceSession, analyze, direct_put, inline_put,
                               render_roofline_row, render_submission,
                               sweep_transfer)
-from repro_torch.core.graphs import (LAUNCH_MODES, ExecGraph,  # noqa: E402
-                                     MultiStepLauncher, node_cost,
+from repro_torch.core.graphs import (LAUNCH_MODES, CapturedStep,  # noqa: E402
+                                     ExecGraph, MultiStepLauncher, node_cost,
                                      record_captures)
 from repro_torch.core.stream import (decode_graph, kernel_base,  # noqa: E402
                                      kernel_label)
@@ -317,6 +346,8 @@ from repro_torch.models import mamba as mamba_block_module  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
 from repro_torch.models.layers import layer_params, map_params  # noqa: E402
 from repro_torch.models.moe import capacity, moe_dense, moe_sorted  # noqa: E402
+from repro_torch.runtime.steps import (make_decode_step,  # noqa: E402
+                                       make_input_specs, make_prefill_step)
 from repro_torch.runtime.server import (ContinuousBatchingServer,  # noqa: E402
                                         Request, Server)
 from repro_torch.runtime.trainer import Trainer  # noqa: E402
@@ -330,6 +361,12 @@ from repro_torch.tune.autotune import (KNOB_WORKLOADS,  # noqa: E402
 TOL = {"rms_norm": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
        "flash_attention": {torch.float32: 3e-5, torch.bfloat16: 3e-2},
        "ssd_scan": {torch.float32: 1e-3, torch.bfloat16: 6e-2}}
+# bf16 flash is also held relative to the reference's scale: a softmax over
+# 1500 keys averages N(0, 1) values down to an RMS of ~0.04, where 3e-2
+# absolute would pass a kernel that dropped a 28-key tail tile (relative L2
+# ~0.14; the rounding alone gives ~2.5e-3)
+FLASH_BF16_REL_L2 = 1e-2
+FLASH_BF16_REL_MAX = 3e-2
 NEW_TOKENS = 32
 # phase G: benchmarks/bench_graphs.py's chains and width (Figure 7)
 GRAPH_WIDTH = 4096
@@ -414,6 +451,28 @@ JAMBA = ServePath("jamba-v0.1-52b", (257, 300, 400, 512), 544,
 GROK = ServePath("grok-1-314b", (61, 128, 200, 255), 512,
                  ("rms_norm", "flash_attention"), 5e-2, 1e-3, n_layers=2)
 ZOO_PATHS = (QWEN_MOE, JAMBA)
+# phase W, the audio and vlm families at full width.  W1: whisper-medium,
+# all 24 + 24 layers, on make_input_specs' prefill batch at Whisper's 30 s
+# (seq_len 1500: frames [4, 1500, 1024] and 375 decoder tokens), then
+# W_DECODE greedy decode steps at max_seq 512, each step one graph replay
+W_SHAPE = ShapeConfig("prefill", 1500, 4, "prefill")
+W_MAX_SEQ = 512
+W_DECODE = 32
+WHISPER = "whisper-medium"
+# phase 6 for whisper: bf16 kernel route against the plain route, relative
+# L2 of the prefill logits (the routes differ in attention arithmetic only,
+# as gemma-2b's); fp32 max |err| of the logits and 8 greedy tokens
+W_BF16_REL_TOL = 3e-2
+W_FP32_ABS_TOL = 1e-3
+# W2: llava-next-34b at full width on 8 of its 60 layers (10.8 GB in bf16,
+# 21.6 GB in fp32; the published 60, ~68 GB in bf16, would leave no room for
+# phase 6's fp32 half): the text path through phases 4-7 on gemma-2b's
+# traffic, then an image prompt of 576 patch embeddings and 64 tokens
+# (seq_len 640, max_seq 704) through make_prefill_step
+LLAVA = ServePath("llava-next-34b", (61, 128, 200, 255), 512,
+                  ("rms_norm", "flash_attention"), 3e-2, 1e-3, n_layers=8)
+W_IMAGE_TEXT = 64
+W_IMAGE_MAX_SEQ = 704
 # Z1: moe_sorted at capacity_factor E/k (no slot dropped) against
 # moe_dense on layer 0's weights: in fp32 the two differ in the order of
 # their sums; in bf16 the sorted path rounds each expert's weighted output
@@ -631,12 +690,15 @@ def rms_inputs(rows: int, D: int, dtype: torch.dtype, device: torch.device,
 
 
 def flash_inputs(B: int, S: int, H: int, Hkv: int, hd: int,
-                 dtype: torch.dtype, device: torch.device, seed: int = 0
+                 dtype: torch.dtype, device: torch.device, seed: int = 0,
+                 Skv: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q [B, S, H, hd] and k, v [B, Skv, Hkv, hd] (Skv defaults to S)."""
+    Skv = S if Skv is None else Skv
     g = torch.Generator(device=device).manual_seed(seed)
     q = torch.randn(B, S, H, hd, generator=g, device=device).to(dtype)
-    k = torch.randn(B, S, Hkv, hd, generator=g, device=device).to(dtype)
-    v = torch.randn(B, S, Hkv, hd, generator=g, device=device).to(dtype)
+    k = torch.randn(B, Skv, Hkv, hd, generator=g, device=device).to(dtype)
+    v = torch.randn(B, Skv, Hkv, hd, generator=g, device=device).to(dtype)
     return q, k, v
 
 
@@ -650,6 +712,44 @@ def ssd_inputs(B: int, S: int, H: int, P: int, N: int, dtype: torch.dtype,
         return torch.randn(*shape, generator=g, device=device)
     return (randn(B, S, H, P).to(dtype), randn(B, S, H).abs(),
             -randn(H).abs(), randn(B, S, N).to(dtype), randn(B, S, N).to(dtype))
+
+
+def w_flash_cases() -> List[Tuple[int, int, int, int, int, int, bool]]:
+    """(B, Sq, Skv, H, Hkv, hd, causal) of phase W: whisper's encoder
+    (1500 frames, non-causal), its decoder's self-attention (375 tokens,
+    causal) and cross-attention (375 queries against 1500 frames), llava's
+    image prefill (576 patches and 64 tokens, GQA 56/8, causal); then Sq !=
+    Skv where a fragment or a 64-key tile is cut, at hd 64 and 128."""
+    w = ARCHS[WHISPER]
+    ll = ARCHS[LLAVA.arch]
+    S_dec = W_SHAPE.seq_len // w.enc_seq_ratio
+    H, hd = w.n_heads, w.hd
+    cases = [(4, W_SHAPE.seq_len, W_SHAPE.seq_len, H, w.n_kv_heads, hd, False),
+             (4, S_dec, S_dec, H, w.n_kv_heads, hd, True),
+             (4, S_dec, W_SHAPE.seq_len, H, w.n_kv_heads, hd, False),
+             (4, ll.n_patches + W_IMAGE_TEXT, ll.n_patches + W_IMAGE_TEXT,
+              ll.n_heads, ll.n_kv_heads, ll.hd, True)]
+    cases += [(2, Sq, Skv, 8, 2, d, False)
+              for Sq, Skv in ((1, 1500), (17, 100), (100, 17), (375, 1))
+              for d in (64, 128)]
+    return cases
+
+
+def hold_flash(out: torch.Tensor, ref: torch.Tensor, label: str) -> None:
+    """``out`` within TOL of ``ref`` element by element; in bf16 also
+    within FLASH_BF16_REL_L2 relative L2 and FLASH_BF16_REL_MAX of max|ref|."""
+    tol = TOL["flash_attention"][out.dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    err, ref32 = max_err(out, ref), ref.float()
+    rel = ((out.float() - ref32).norm() / ref32.norm().clamp_min(1e-30)).item()
+    top, rms = ref32.abs().max().item(), ref32.pow(2).mean().sqrt().item()
+    log(f"{label}: max|err| {err:.3e} (tol {tol}), rms|ref| {rms:.3e}, "
+        f"max|ref| {top:.3e}, rel L2 {rel:.3e}")
+    if out.dtype == torch.bfloat16 and (
+            rel > FLASH_BF16_REL_L2 or err > FLASH_BF16_REL_MAX * top):
+        raise AssertionError(
+            f"{label}: rel L2 {rel:.3e} (limit {FLASH_BF16_REL_L2}) or "
+            f"max|err| {err:.3e} > {FLASH_BF16_REL_MAX} * max|ref| {top:.3e}")
 
 
 def check_kernels(device: torch.device) -> None:
@@ -688,14 +788,24 @@ def check_kernels(device: torch.device) -> None:
         for causal in (True, False):
             for dtype in dtypes:
                 q, k, v = flash_inputs(B, S, H, Hkv, hd, dtype, device)
-                out = flash_attention(q, k, v, causal=causal)
-                ref = flash_attention_ref(q, k, v, causal=causal)
-                tol = TOL["flash_attention"][dtype]
-                torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
-                                           atol=tol)
-                log(f"flash B={B} S={S} H={H} Hkv={Hkv} hd={hd} "
-                    f"causal={causal} {dtype}: max|err| "
-                    f"{max_err(out, ref):.3e} (tol {tol})")
+                hold_flash(flash_attention(q, k, v, causal=causal),
+                           flash_attention_ref(q, k, v, causal=causal),
+                           f"flash B={B} S={S} H={H} Hkv={Hkv} hd={hd} "
+                           f"causal={causal} {dtype}")
+    for B, Sq, Skv, H, Hkv, hd, causal in w_flash_cases():
+        for dtype in dtypes:
+            q, k, v = flash_inputs(B, Sq, H, Hkv, hd, dtype, device, Skv=Skv)
+            hold_flash(flash_attention(q, k, v, causal=causal),
+                       flash_attention_ref(q, k, v, causal=causal),
+                       f"flash B={B} Sq={Sq} Skv={Skv} H={H} Hkv={Hkv} "
+                       f"hd={hd} causal={causal} {dtype}")
+    q, k, v = flash_inputs(1, 17, 8, 2, 64, torch.bfloat16, device, Skv=100)
+    try:
+        flash_attention(q, k, v, causal=True)
+    except ValueError as e:
+        log(f"flash causal Sq=17 Skv=100 refused: {e}")
+    else:
+        raise AssertionError("flash_attention took a causal Skv != Sq call")
     # (B, S, H, P, N, chunk): the mamba path's shape; one ragged chunk
     # (Q = S = 255); small chunks (Q = 16); H = 3; P < 64 and N < 128; 16
     # chunks, so the state is passed 15 times; chunks of 64 (one tile); 165
@@ -1375,8 +1485,8 @@ def serve_main_path(path: ServePath, cfg: ModelConfig, params,
     captures the graphs, the second replays them under torch.profiler.
     Counters are zeroed just before each serve and read just after."""
     model = get_model(cfg, impl="cuda", device=device)
-    _, eager = greedy(model, params, padded_prompts(
-        requests(path, cfg.vocab_size), device), NEW_TOKENS, path.max_seq)
+    _, eager = greedy(model, cfg, params, prompt_batch(path, cfg, device),
+                      NEW_TOKENS, path.max_seq)
     runs: Dict[int, Dict[str, Any]] = {}
     for T in (1, 4):
         srv = Server(cfg, batch_size=len(path.prompt_lens),
@@ -1437,17 +1547,39 @@ def serve_main_path(path: ServePath, cfg: ModelConfig, params,
 
 
 # ---------------------------------------------------------------- phase 6
-def greedy(model, params, toks: torch.Tensor, n: int, max_seq: int
-           ) -> Tuple[torch.Tensor, List[List[int]]]:
-    state, logits = model.prefill(params, toks, max_seq)
+def greedy(model, cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+           n: int, max_seq: int) -> Tuple[torch.Tensor, List[List[int]]]:
+    """The eager control: the prefill of ``batch`` (:func:`prefill_of`),
+    then greedy decode steps, ``n`` tokens in all (the prefill's first)."""
+    state, logits = prefill_of(model, cfg, batch, max_seq)(params, batch)
     first = logits
+    decode = make_decode_step(model, cfg)
     out = []
     for _ in range(n):
-        nxt = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+        nxt = argmax_tokens(logits)
         out.append(nxt[:, 0])
         if len(out) < n:
-            state, logits = model.decode_step(params, state, nxt)
+            state, logits = decode(params, state, nxt)
     return first, torch.stack(out, dim=1).tolist()
+
+
+def prefill_of(model, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+               max_seq: int) -> Callable:
+    """``(params, batch) -> (state, logits)``: token prompts alone go to
+    ``model.prefill`` as ``Server`` sends them (llava text-only), any other
+    batch through the family's ``make_prefill_step``."""
+    if set(batch) == {"tokens"}:
+        return lambda params, b: model.prefill(params, b["tokens"], max_seq)
+    return make_prefill_step(model, cfg, max_seq)
+
+
+def argmax_tokens(logits: torch.Tensor) -> torch.Tensor:
+    return torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+
+
+def prompt_batch(path: ServePath, cfg: ModelConfig, device: torch.device
+                 ) -> Dict[str, torch.Tensor]:
+    return {"tokens": padded_prompts(requests(path, cfg.vocab_size), device)}
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1517,18 +1649,24 @@ def held_log(cfg: ModelConfig, label: str, calls: List[torch.Tensor],
 
 
 def compare_bf16(path: ServePath, cfg: ModelConfig, params,
-                 device: torch.device) -> Dict[str, float]:
+                 device: torch.device,
+                 batch: Optional[Dict[str, torch.Tensor]] = None
+                 ) -> Dict[str, float]:
     """Phase 6's bf16 half: prefill logits of the kernel route against the
-    plain route (and the control) on the path's weights; every reading is
-    logged before any check fails."""
-    toks = padded_prompts(requests(path, cfg.vocab_size), device)
-    kern = get_model(cfg, impl="cuda", device=device)
-    plain = get_model(cfg, impl="ref", device=device)
+    plain route (and the control) on the path's weights, through the
+    family's prefill step on ``batch`` (the path's prompts by default);
+    every reading is logged before any check fails."""
+    batch = prompt_batch(path, cfg, device) if batch is None else batch
+    B = batch["tokens"].shape[0]
+    kern = prefill_of(get_model(cfg, impl="cuda", device=device), cfg, batch,
+                      path.max_seq)
+    plain = prefill_of(get_model(cfg, impl="ref", device=device), cfg, batch,
+                       path.max_seq)
     ssd_errors: List[Tuple[float, float]] = []
     calls: List[torch.Tensor] = []
     flips: List[int] = []
     with experts_held(calls, flips), ssd_held_to_plain(ssd_errors):
-        _, lk = kern.prefill(params, toks, path.max_seq)
+        _, lk = kern(params, batch)
     if ssd_errors:
         worst = max(ssd_errors)
         log(f"{cfg.name} ssd_scan held to its plain version on each layer's "
@@ -1536,21 +1674,22 @@ def compare_bf16(path: ServePath, cfg: ModelConfig, params,
             f"(|y| up to {max(m for _, m in ssd_errors):.2f}; rtol=atol="
             f"{TOL['ssd_scan'][getattr(torch, cfg.param_dtype)]})")
     with experts_held(calls, flips):
-        _, lp = plain.prefill(params, toks, path.max_seq)
+        _, lp = plain(params, batch)
     held_log(cfg, "bf16 prefill, plain route", calls, flips)
-    if not (torch.isfinite(lk).all() and lk.shape == (toks.shape[0], 1,
-                                                       cfg.vocab_padded)):
+    if not (torch.isfinite(lk).all()
+            and lk.shape == (B, 1, cfg.vocab_padded)):
         raise AssertionError(f"bf16 prefill logits: shape {tuple(lk.shape)} "
                              f"or non-finite values")
     rel = rel_l2(lk, lp)
     limit = path.bf16_rel_tol
     out = {"bf16_logits_rel_l2": rel}
     if path.control:
-        ctrl = get_model(dataclasses.replace(cfg, **path.control), impl="ref",
-                         device=device)
+        ctrl_cfg = dataclasses.replace(cfg, **path.control)
+        ctrl = prefill_of(get_model(ctrl_cfg, impl="ref", device=device),
+                          ctrl_cfg, batch, path.max_seq)
         flips = []
         with experts_held(calls, flips):
-            _, lc = ctrl.prefill(params, toks, path.max_seq)
+            _, lc = ctrl(params, batch)
         held_log(cfg, "bf16 prefill, control", calls, flips)
         out["bf16_control_rel_l2"] = rel_c = rel_l2(lc, lp)
         limit = max(limit, CONTROL_FACTOR * rel_c)
@@ -1567,25 +1706,31 @@ def compare_bf16(path: ServePath, cfg: ModelConfig, params,
 
 
 def compare_fp32(path: ServePath, cfg: ModelConfig, device: torch.device,
-                 seed: int = 0) -> float:
+                 seed: int = 0,
+                 make_batch: Optional[Callable[[ModelConfig],
+                                               Dict[str, torch.Tensor]]] = None
+                 ) -> float:
     """Phase 6's fp32 half: the fp32 variant's prefill logits and 8 greedy
-    tokens, kernel route against plain route, on its own seeded weights."""
-    toks = padded_prompts(requests(path, cfg.vocab_size), device)
+    tokens, kernel route against plain route, on its own seeded weights;
+    ``make_batch(cfg32)`` gives the prefill's batch (the path's prompts by
+    default)."""
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    batch = (prompt_batch(path, cfg32, device) if make_batch is None
+             else make_batch(cfg32))
     kern32 = get_model(cfg32, impl="cuda", device=device)
     plain32 = get_model(cfg32, impl="ref", device=device)
     params32 = kern32.init_params(seed)
     calls: List[torch.Tensor] = []
     flips: List[int] = []
     with experts_held(calls, flips):
-        lk, tk = greedy(kern32, params32, toks, 8, path.max_seq)
+        lk, tk = greedy(kern32, cfg32, params32, batch, 8, path.max_seq)
     with experts_held(calls, flips):
-        lp, tp = greedy(plain32, params32, toks, 8, path.max_seq)
+        lp, tp = greedy(plain32, cfg32, params32, batch, 8, path.max_seq)
     held_log(cfg, "fp32 prefill and decode, plain route", calls, flips)
     err = max_err(lk, lp)
     log(f"{cfg.name} fp32 prefill logits max|err| {err:.3e} (tol "
         f"{path.fp32_abs_tol}); greedy tokens kernel {tk} plain {tp}")
-    del params32, lk, lp
+    del params32, lk, lp, batch
     free()
     if err > path.fp32_abs_tol or tk != tp:
         raise AssertionError("fp32 routes disagree")
@@ -3260,6 +3405,212 @@ def zoo_path(card: str, device: torch.device
     return counts, engines
 
 
+# ---------------------------------------------------------------- phase W
+def w_batch(cfg: ModelConfig, shape: ShapeConfig, device: torch.device,
+            seed: int = 0) -> Dict[str, torch.Tensor]:
+    """``make_input_specs``' prefill batch for ``cfg`` at ``shape``, drawn
+    from ``seed`` on the card: frames or patch embeddings N(0, 1) in the
+    spec's type, tokens uniform over the vocabulary (no labels)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = {}
+    for key, spec in make_input_specs(cfg, shape).items():
+        if key == "labels":
+            continue
+        if spec.dtype.is_floating_point:
+            out[key] = torch.randn(spec.shape, generator=g,
+                                   device=device).to(spec.dtype)
+        else:
+            out[key] = torch.randint(0, cfg.vocab_size, spec.shape,
+                                     generator=g, device=device,
+                                     dtype=torch.int32)
+    return out
+
+
+def step_launches(cfg: ModelConfig
+                  ) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """The kernel launches of one prefill and of one decode step: whisper's
+    prefill runs flash in each encoder layer and twice in each decoder
+    layer (self and cross), RMSNorm twice an encoder layer, three times a
+    decoder layer and once after each stack; its decode step three norms a
+    layer and the final one.  The text model: one flash and two norms a
+    layer, and the final norm."""
+    L = cfg.n_layers
+    if cfg.family == "audio":
+        Le = cfg.n_enc_layers
+        return ({"flash_attention": Le + 2 * L,
+                 "rms_norm": 2 * Le + 1 + 3 * L + 1},
+                {"rms_norm": 3 * L + 1})
+    return ({"flash_attention": L, "rms_norm": 2 * L + 1},
+            {"rms_norm": 2 * L + 1})
+
+
+def step_path(card: str, cfg: ModelConfig, params, batch,
+              max_seq: int, device: torch.device, label: str,
+              decode_params: int) -> Dict[str, Any]:
+    """W's main path: one prefill through ``make_prefill_step`` and
+    W_DECODE greedy steps through ``make_decode_step``, each one replay of
+    a CUDA Graph (``CapturedStep``) rung as a doorbell on one TraceSession;
+    counts zeroed just before the prefill and read after the last step.
+    Held to an eager greedy loop's tokens, to the expected launches, to
+    torch.profiler's records of a prefill and of a decode replay (by
+    name), and the decode graph decoded (S2) to one replay's records; its
+    roofline (S3, model FLOPs 2 ``decode_params`` a token); then the
+    replays' times (phase 7)."""
+    model = get_model(cfg, impl="cuda", device=device)
+    B = batch["tokens"].shape[0]
+    prefill_step = make_prefill_step(model, cfg, max_seq)
+    decode_step = make_decode_step(model, cfg)
+    state = model.init_decode_state(B, max_seq)
+    tok = torch.zeros(B, 1, dtype=torch.int32, device=device)
+
+    def prefill() -> None:
+        _, logits = prefill_step(params, batch, state=state)
+        tok.copy_(argmax_tokens(logits))
+
+    def decode() -> None:
+        _, logits = decode_step(params, state, tok)
+        tok.copy_(argmax_tokens(logits))
+
+    pf, dc = CapturedStep(prefill, device), CapturedStep(decode, device)
+    with record_captures():       # each step's op stream, for S2-S3
+        # the decode first: its warm-up writes the state the prefill resets;
+        # on the CPU the first call records, as the card's warm-up does
+        for step in (dc, pf):
+            step.capture() if device.type == "cuda" else step()
+    sess = TraceSession(name=label)
+    ring_prefill = sess.doorbell.wrap(lambda p, b: pf(), "prefill")
+    ring_decode = sess.doorbell.wrap(lambda p, st, t: dc(), "decode_step")
+    reset_launches()
+    ring_prefill(params, batch)
+    out = [tok[:, 0].clone()]
+    for _ in range(W_DECODE):
+        ring_decode(params, state, tok)
+        out.append(tok[:, 0].clone())
+    tokens = torch.stack(out, dim=1).tolist()
+    counts = dict(launches)
+    doorbells = sess.doorbell.count
+    want_pf, want_dc = step_launches(cfg)
+    want = {k: want_pf.get(k, 0) + W_DECODE * want_dc.get(k, 0)
+            for k in set(want_pf) | set(want_dc)}
+    log(f"{label}: {doorbells} doorbells (prefill + {W_DECODE} decode "
+        f"steps), kernel launches {counts}; a prefill graph "
+        f"{dict(pf.launches)}, a decode graph {dict(dc.launches)}")
+    _, eager = greedy(model, cfg, params, batch, W_DECODE + 1, max_seq)
+    if doorbells != 1 + W_DECODE:
+        raise AssertionError(f"{label}: {doorbells} doorbells")
+    if (dict(pf.launches) != want_pf or dict(dc.launches) != want_dc
+            or counts != want):
+        raise AssertionError(f"{label}: launches {counts}, expected {want} "
+                             f"({want_pf} a prefill, {want_dc} a decode)")
+    if tokens != eager:
+        raise AssertionError(f"{label}: graph-replayed tokens differ from "
+                             f"the eager greedy loop's")
+    if any(not 0 <= x < cfg.vocab_size for t in tokens for x in t):
+        raise AssertionError(f"{label}: tokens out of range")
+    log(f"{label}: {B} x {W_DECODE + 1} tokens equal the eager greedy "
+        f"loop's; first {tokens[0][:8]}")
+    # torch.profiler's records of one replay each, held to the counted
+    # launches by name (_profile raises otherwise)
+    for name, step in (("prefill", pf), ("decode", dc)):
+        w = _profile(step, warmup=False, label=f"{label} {name} replay")
+        log(f"{label} {name} replay: torch.profiler counts "
+            f"{profiled_counts(w.rows, ('rms_norm', 'flash_attention'))} "
+            f"equal the counted launches {dict(step.launches)}")
+    cs = CommandStreamCapture().capture_compiled(f"{label} decode", dc)
+    held_to_graph(f"{label} decode", dc, cs)
+    pf()                # back to the prompt's length before the timings
+    t = {"replay_prefill_ms": time_ms(pf, reps=3, warmup=1)}
+    profile_window(pf, f"{label} prefill profile (one replay)",
+                   kernels=("flash_attention", "rms_norm"))
+    pf()
+    t["replay_decode_ms"] = time_ms(dc, reps=16, warmup=2)
+    profile_window(dc, f"{label} decode profile (one replay)")
+    busy_ms = device_ms(dc, reps=4)
+    span_ms = time_ms(dc, reps=1, warmup=1)
+    t["replay_decode_busy"] = busy_ms / span_ms
+    rep = analyze(cs, chips=1, model_flops_total=2 * decode_params * B,
+                  name=f"{label} decode")
+    bound_ms = rep.step_time_s * 1e3
+    log(f"{card} | roofline {label} decode: compute "
+        f"{rep.compute_s * 1e3:.4f} ms ({rep.flops_per_device / 1e9:.3f} "
+        f"GFLOP), memory {rep.memory_s * 1e3:.4f} ms "
+        f"({rep.hbm_bytes_per_device / 1e9:.4f} GB), bound {bound_ms:.4f} ms "
+        f"({rep.bottleneck}); measured replay {t['replay_decode_ms']:.4f} ms: "
+        f"{bound_ms / t['replay_decode_ms']:.1%} of the roofline; graph "
+        f"{cs.n_ops} nodes")
+    print(render_roofline_row(rep), flush=True)
+    log(f"{card} | {label} B={B}: replayed prefill "
+        f"{t['replay_prefill_ms']:.3f} ms, decode {t['replay_decode_ms']:.3f}"
+        f" ms/step ({B} tokens), device busy over one decode replay "
+        f"{t['replay_decode_busy']:.1%} ({busy_ms:.3f} ms of kernels in a "
+        f"{span_ms:.3f} ms span)")
+    del pf, dc, state
+    free()
+    return {"counts": counts, "prefill": dict(want_pf),
+            "decode": dict(want_dc), "times": t,
+            "roofline_share": bound_ms / t["replay_decode_ms"]}
+
+
+def n_params(tree) -> int:
+    return sum(t.numel() for t in _leaves(tree))
+
+
+def w_path(card: str, device: torch.device
+           ) -> Tuple[Dict[str, Any], Dict[str, Dict[str, Any]]]:
+    """Phase W: W1 whisper-medium at full width and depth (the prefill and
+    decode steps, phase 6, then phase 6's fp32 half); W2 llava-next-34b at
+    full width on 8 layers: the text path through phases 4-7 and S2-S3,
+    then the image prompt through the steps.  Each model is released
+    before the next.  Returns llava's serve launches (as ``drive_path``'s)
+    and each step path's result by label."""
+    steps: Dict[str, Dict[str, Any]] = {}
+    cfg = ARCHS[WHISPER]
+    log(f"phase W1: {WHISPER} at full width and depth, seeded on-device "
+        f"init")
+    params = get_model(cfg, device=device).init_params(seed=0)
+    log(f"{cfg.name}: {n_params(params) / 1e9:.3f} B parameters, "
+        f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f}"
+        f" GB ({cfg.param_dtype}); {cfg.n_enc_layers} encoder and "
+        f"{cfg.n_layers} decoder layers")
+    batch = w_batch(cfg, W_SHAPE, device)
+    log(f"{cfg.name}: batch {({k: tuple(v.shape) for k, v in batch.items()})}"
+        f" from make_input_specs at {W_SHAPE}")
+    # a decode step reads the decoder, the embedding and the unembedding
+    dec = (n_params(params) - n_params(params["encoder"])
+           - params["pos_dec"].numel())
+    steps[WHISPER] = step_path(card, cfg, params, batch, W_MAX_SEQ, device,
+                               WHISPER, dec)
+    # phase 6 on make_input_specs' batch (the path has no prompts)
+    path = ServePath(WHISPER, (), W_MAX_SEQ, ("rms_norm", "flash_attention"),
+                     W_BF16_REL_TOL, W_FP32_ABS_TOL)
+    log(f"phase 6: {WHISPER} kernel route against the plain route, bf16")
+    steps[WHISPER]["bf16_rel_l2"] = compare_bf16(
+        path, cfg, params, device, batch)["bf16_logits_rel_l2"]
+    del params, batch
+    free()
+    log(f"phase 6: {WHISPER} fp32 at full depth, after the bf16 weights are "
+        f"released")
+    steps[WHISPER]["fp32_max_err"] = compare_fp32(
+        path, cfg, device, make_batch=lambda c: w_batch(c, W_SHAPE, device,
+                                                        seed=1))
+
+    image = f"{LLAVA.arch} image"
+
+    def w2_image(cfg: ModelConfig, params) -> None:
+        shape = ShapeConfig("prefill", cfg.n_patches + W_IMAGE_TEXT,
+                            len(LLAVA.prompt_lens), "prefill")
+        log(f"phase W2: {cfg.name} image prompt, {cfg.n_patches} patch "
+            f"embeddings and {W_IMAGE_TEXT} tokens, make_prefill_step at "
+            f"{shape}, max_seq {W_IMAGE_MAX_SEQ}")
+        steps[image] = step_path(card, cfg, params,
+                                 w_batch(cfg, shape, device), W_IMAGE_MAX_SEQ,
+                                 device, image, n_params(params))
+
+    log(f"phase W2: {LLAVA.arch}, text path through phases 4-7")
+    counts = {LLAVA.arch: drive_path(LLAVA, card, device, w2_image)}
+    return counts, steps
+
+
 # ---------------------------------------------------------------- kernels
 def roofline(cost: KernelCost) -> Dict[str, Any]:
     """Bound of bf16 work on one H100 SXM (NVIDIA's published peaks): the
@@ -3293,21 +3644,29 @@ def rms_entry(device: torch.device) -> Dict[str, Any]:
 
 
 def flash_at(device: torch.device, B: int, S: int, H: int, Hkv: int,
-             hd: int) -> Dict[str, Any]:
-    """The flash kernel at one causal bf16 shape: its device time beside its
-    plain version, SDPA on the same inputs and its bound."""
-    q, k, v = flash_inputs(B, S, H, Hkv, hd, torch.bfloat16, device, seed=1)
-    err = max_err(flash_attention(q, k, v), flash_attention_ref(q, k, v))
+             hd: int, Skv: Optional[int] = None, causal: bool = True
+             ) -> Dict[str, Any]:
+    """The flash kernel at one bf16 shape (queries of S, K/V of Skv,
+    default S): its device time beside its plain version, SDPA on the same
+    inputs and its bound."""
+    q, k, v = flash_inputs(B, S, H, Hkv, hd, torch.bfloat16, device, seed=1,
+                           Skv=Skv)
+    err = max_err(flash_attention(q, k, v, causal),
+                  flash_attention_ref(q, k, v, causal))
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+        qt, kt, vt, is_causal=causal, enable_gqa=True))
+    kv = "" if Skv is None else f" Skv={Skv}"
     return {"max_abs_err": err,
-            "ms": device_ms(lambda: flash_attention(q, k, v)),
-            "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v)),
-            "call_ms": time_ms(lambda: flash_attention(q, k, v), reps=50),
-            **roofline(flash_attention_cost(q, k, v)),
+            "ms": device_ms(lambda: flash_attention(q, k, v, causal)),
+            "plain_ms": device_ms(lambda: flash_attention_ref(q, k, v,
+                                                              causal)),
+            "call_ms": time_ms(lambda: flash_attention(q, k, v, causal),
+                               reps=50),
+            **roofline(flash_attention_cost(q, k, v, causal)),
             "library_ms": library_ms,
-            "shape": f"B={B} S={S} H={H} Hkv={Hkv} hd={hd} causal bf16"}
+            "shape": f"B={B} S={S}{kv} H={H} Hkv={Hkv} hd={hd} "
+                     f"{'causal' if causal else 'non-causal'} bf16"}
 
 
 def path_flash_shape(path: ServePath) -> Tuple[int, int, int, int, int]:
@@ -3400,6 +3759,34 @@ def zoo_shapes(card: str, device: torch.device, entries: Dict[str, Any]
                 + (f"; steps {r['steps_ms']}" if "steps_ms" in r else ""))
 
 
+def w_shapes(card: str, device: torch.device, entries: Dict[str, Any]
+             ) -> None:
+    """Flash at phase W's prefill shapes, each beside SDPA and its bound,
+    into ``entries["flash_attention"]["w_shapes"]``: whisper's encoder
+    (1500 frames, non-causal), its cross-attention (375 queries against
+    1500 frames) and llava's image prefill (576 + 64, GQA 56/8, causal)."""
+    w, ll = ARCHS[WHISPER], ARCHS[LLAVA.arch]
+    S_enc = W_SHAPE.seq_len
+    S_dec = S_enc // w.enc_seq_ratio
+    S_img = ll.n_patches + W_IMAGE_TEXT
+    shapes = {"whisper encoder": (4, S_enc, w.n_heads, w.n_kv_heads, w.hd,
+                                  S_enc, False),
+              "whisper cross": (4, S_dec, w.n_heads, w.n_kv_heads, w.hd,
+                                S_enc, False),
+              "llava image prefill": (4, S_img, ll.n_heads, ll.n_kv_heads,
+                                      ll.hd, None, True)}
+    for label, args in shapes.items():
+        r = flash_at(device, *args)
+        entries["flash_attention"].setdefault("w_shapes", {})[label] = r
+        log(f"{card} | flash_attention {label} at {r['shape']}: kernel "
+            f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, "
+            f"scaled_dot_product_attention {r['library_ms']:.5f} ms, bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}): "
+            f"{r['bound_ms'] / r['ms']:.1%} of the bound, "
+            f"{r['ms'] / r['library_ms']:.2f}x SDPA; max|err| "
+            f"{r['max_abs_err']:.3e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3449,10 +3836,17 @@ def main() -> int:
     counts.update(z_counts)
     log(f"{card} | phase Z: {time.perf_counter() - t0:.1f} s")
 
+    log("phase W: the audio and vlm families at full width")
+    t0 = time.perf_counter()
+    w_counts, w_steps = w_path(card, device)
+    counts.update(w_counts)
+    log(f"{card} | phase W: {time.perf_counter() - t0:.1f} s")
+
     log("kernels at their paths' shapes")
     kernels = [rms_entry(device), flash_entry(device), ssd_entry(device)]
     kernels[1]["long_s"] = flash_long(card, device)
     zoo_shapes(card, device, {e["name"]: e for e in kernels})
+    w_shapes(card, device, {e["name"]: e for e in kernels})
     for e in kernels:
         # launches: the replayed T=1 serves of every path that runs the
         # kernel; by path, every serve, the continuous engine's measured C1
@@ -3465,6 +3859,13 @@ def main() -> int:
             if by_T[1]["replay"].get(e["name"], 0)}
         e["launches"] = sum(v["T=1 replay"]
                             for v in e["launches_by_path"].values())
+        # phase W's step paths: the prefill and its W_DECODE decode steps
+        for label, r in w_steps.items():
+            if r["counts"].get(e["name"], 0):
+                e["launches_by_path"][f"{label} steps"] = {
+                    f"prefill + {W_DECODE} decode replays":
+                        r["counts"][e["name"]]}
+                e["launches"] += r["counts"][e["name"]]
         for arch, c in c_counts.items():
             if c.get(e["name"], 0):
                 e["launches_by_path"][f"{arch} continuous"] = {

@@ -1,7 +1,7 @@
 """Model configurations: the port's own copy of ``repro.configs``.
 
-The dense, MoE, Mamba2 (ssm) and hybrid architectures are registered
-(whisper and llava, the audio and vlm families, are not); the serving
+All ten of the reference's architectures are registered: dense, MoE,
+Mamba2 (ssm), hybrid, whisper (audio) and llava (vlm); the serving
 geometry (``ServeShape``, ``SERVE_SHAPES``, ``kv_geometry``) and the
 assigned input shapes come from ``shapes``.
 """
@@ -10,7 +10,8 @@ from __future__ import annotations
 from typing import Dict
 
 from . import (deepseek_7b, gemma_2b, grok_1_314b, jamba_v01_52b,
-               llama3_405b, mamba2_780m, qwen2_moe_a2_7b, qwen3_8b)
+               llama3_405b, llava_next_34b, mamba2_780m, qwen2_moe_a2_7b,
+               qwen3_8b, whisper_medium)
 from .base import ModelConfig
 from .shapes import (SERVE_SHAPES, SHAPES, ServeShape, ShapeConfig,
                      applicable, kv_geometry, skip_reason)
@@ -23,7 +24,9 @@ ARCHS: Dict[str, ModelConfig] = {
     "deepseek-7b": deepseek_7b.CONFIG,
     "llama3-405b": llama3_405b.CONFIG,
     "qwen3-8b": qwen3_8b.CONFIG,
+    "whisper-medium": whisper_medium.CONFIG,
     "mamba2-780m": mamba2_780m.CONFIG,
+    "llava-next-34b": llava_next_34b.CONFIG,
 }
 
 SMOKE_ARCHS: Dict[str, ModelConfig] = {
@@ -34,7 +37,9 @@ SMOKE_ARCHS: Dict[str, ModelConfig] = {
     "deepseek-7b": deepseek_7b.SMOKE,
     "llama3-405b": llama3_405b.SMOKE,
     "qwen3-8b": qwen3_8b.SMOKE,
+    "whisper-medium": whisper_medium.SMOKE,
     "mamba2-780m": mamba2_780m.SMOKE,
+    "llava-next-34b": llava_next_34b.SMOKE,
 }
 
 __all__ = ["ARCHS", "SMOKE_ARCHS", "ModelConfig", "SHAPES", "ShapeConfig",

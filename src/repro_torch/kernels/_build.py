@@ -93,8 +93,9 @@ def library() -> ctypes.CDLL:
     lib.rms_norm_fwd.argtypes = [ptr, ptr, ptr, ctypes.c_longlong, i32,
                                  ctypes.c_float, i32, ptr]
     lib.rms_norm_fwd.restype = i32
-    lib.flash_attention_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                        i32, i32, ctypes.c_float, i32, ptr]
+    # q, k, v, out, then B, Sq, Skv, H, Hkv, hd, causal, scale, dtype, stream
+    lib.flash_attention_fwd.argtypes = [ptr, ptr, ptr, ptr] + [i32] * 7 + [
+        ctypes.c_float, i32, ptr]
     lib.flash_attention_fwd.restype = i32
     # x, dt, A, Bc, Cc, y, then the workspaces cum, dt, cb, states
     lib.ssd_scan_fwd.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]

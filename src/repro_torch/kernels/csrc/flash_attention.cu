@@ -4,8 +4,10 @@
 //   src/repro/kernels/flash_attention/kernel.py (the Pallas TPU kernel).  That
 //   kernel needs S to be a multiple of its 128-row blocks and K/V with the
 //   query's head count; this one takes any S and K/V with Hkv heads dividing H.
-// Computes: out = softmax(q k^T * hd^-0.5 [causal mask]) v for q [B,S,H,hd] and
-//   k, v [B,S,Hkv,hd]; query head h reads K/V head h / (H / Hkv).  Scores,
+// Computes: out = softmax(q k^T * hd^-0.5 [causal mask]) v for q [B,Sq,H,hd] and
+//   k, v [B,Skv,Hkv,hd]; query head h reads K/V head h / (H / Hkv).  Without
+//   the causal mask Skv may differ from Sq (cross-attention: whisper's decoder
+//   queries against its encoder's 1500 frames); causal needs Skv == Sq.  Scores,
 //   running max, running sum and the accumulator are fp32; inputs are f32 or
 //   bf16 and the output has the input type.  hd is 64, 128 or 256.
 // Bound: at the serving path's shapes (B=4, S=255, H=8, Hkv=1, hd=256, causal)
@@ -32,7 +34,7 @@
 //     16) bytes, 165 KB (BQ 64) or 198 KB (BQ 128) at hd=256, one block an
 //     SM.  Tiles arrive by 16-byte cp.async (cp.async.cg, commit/wait_group):
 //     the loads of key tile j+1 are in flight while tile j is computed.  Rows
-//     past S are zero-filled by the copy (src-size 0), so nothing reads past
+//     past Sq (Q) or Skv (K, V) are zero-filled by the copy (src-size 0), so nothing reads past
 //     the tensors.  With rows of hd * 2 + 16 bytes the 8 row addresses of an
 //     ldmatrix phase start 16 bytes apart and never share a bank, and every
 //     address is a per-lane base plus a constant (an XOR swizzle made each a
@@ -56,11 +58,11 @@
 //     BQ 64 the two warps of a group keep their own max, sum and accumulator
 //     over disjoint keys; at the end the second hands them to the first
 //     through shared memory, which merges them.
-//   - Any S: the ragged tails of q and k are masked per 16x8 fragment
+//   - Any Sq, Skv: the ragged tails of q and k are masked per 16x8 fragment
 //     element.  In causal mode key tiles past the query tile's diagonal are
 //     skipped and only the diagonal and ragged tiles are masked.  A row with
 //     no valid key writes zeros (l is clamped at 1e-30).  Block y computes
-//     query tile ceil(S/BQ)-1-y, so the heaviest causal tiles start first.
+//     query tile ceil(Sq/BQ)-1-y, so the heaviest causal tiles start first.
 //   - The output goes through the group's own Q rows in shared memory and
 //     leaves in 16-byte stores.  Pointers must be 16-byte aligned.
 //   - Each warp reads whole K and V fragments from shared memory for its 16
@@ -80,7 +82,7 @@
 //   scores and owns hd/4 accumulator columns in registers; row max and sum
 //   are reduced with warp shuffles.  Rows are padded by one float so the
 //   threads of a warp hit distinct banks.  Causal tiles past the diagonal are
-//   skipped; query rows and keys past S are masked.
+//   skipped; query rows past Sq and keys past Skv are masked.
 //
 // Both kernels take more than the 48 KB default of shared memory at hd=256,
 // so every launch first raises the dynamic limit with cudaFuncSetAttribute;
@@ -109,8 +111,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int S,
-                           int H, int Hkv, int causal, float scale) {
+                           const T* __restrict__ v, T* __restrict__ o, int Sq,
+                           int Skv, int H, int Hkv, int causal, float scale) {
   constexpr int LD = HD + 1;              // padded row length in floats
   constexpr int kColsPerThread = HD / kRowThreads;
   extern __shared__ float smem[];
@@ -125,15 +127,15 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = blockIdx.y * kBlockQ;
   const size_t q_stride = (size_t)H * HD;     // elements between sequence rows
   const size_t kv_stride = (size_t)Hkv * HD;
-  const T* qb = q + (size_t)b * S * q_stride + (size_t)h * HD;
-  const T* kb = k + (size_t)b * S * kv_stride + (size_t)hk * HD;
-  const T* vb = v + (size_t)b * S * kv_stride + (size_t)hk * HD;
-  T* ob = o + (size_t)b * S * q_stride + (size_t)h * HD;
+  const T* qb = q + (size_t)b * Sq * q_stride + (size_t)h * HD;
+  const T* kb = k + (size_t)b * Skv * kv_stride + (size_t)hk * HD;
+  const T* vb = v + (size_t)b * Skv * kv_stride + (size_t)hk * HD;
+  T* ob = o + (size_t)b * Sq * q_stride + (size_t)h * HD;
 
   const int tid = threadIdx.x;
   for (int idx = tid; idx < kBlockQ * HD; idx += kThreads) {
     const int r = idx / HD, c = idx % HD;
-    qs[r * LD + c] = (q0 + r < S) ? to_float(qb[(size_t)(q0 + r) * q_stride + c]) * scale : 0.f;
+    qs[r * LD + c] = (q0 + r < Sq) ? to_float(qb[(size_t)(q0 + r) * q_stride + c]) * scale : 0.f;
   }
 
   const int row = tid / kRowThreads;      // query row within the tile
@@ -144,14 +146,14 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kColsPerThread; ++i) acc[i] = 0.f;
   float m = -INFINITY, l = 0.f;
 
-  const int kv_end = causal ? min(S, q0 + kBlockQ) : S;
+  const int kv_end = causal ? min(Skv, q0 + kBlockQ) : Skv;
   const int n_tiles = (kv_end + kBlockK - 1) / kBlockK;
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * kBlockK;
     __syncthreads();  // the previous tile's K, V and P are no longer read
     for (int idx = tid; idx < kBlockK * HD; idx += kThreads) {
       const int r = idx / HD, c = idx % HD;
-      const bool ok = k0 + r < S;
+      const bool ok = k0 + r < Skv;
       ks[r * LD + c] = ok ? to_float(kb[(size_t)(k0 + r) * kv_stride + c]) : 0.f;
       vs[r * LD + c] = ok ? to_float(vb[(size_t)(k0 + r) * kv_stride + c]) : 0.f;
     }
@@ -169,7 +171,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kKeysPerThread; ++j) {
       const int kpos = k0 + sub + kRowThreads * j;
-      const bool valid = kpos < S && (!causal || kpos <= qpos);
+      const bool valid = kpos < Skv && (!causal || kpos <= qpos);
       s[j] = valid ? s[j] : -INFINITY;
       tile_max = fmaxf(tile_max, s[j]);
     }
@@ -199,7 +201,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  if (qpos < S) {
+  if (qpos < Sq) {
     const float inv = 1.f / fmaxf(l, 1e-30f);
     T* orow = ob + (size_t)qpos * q_stride;
 #pragma unroll
@@ -236,18 +238,18 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 }
 
 // ROWS rows of HD bf16 from src (row stride `stride` elements), rows from
-// row0, into a padded tile at shared address dst; rows at or past S are
+// row0, into a padded tile at shared address dst; rows at or past n_rows are
 // zero-filled.  One 16-byte cp.async per chunk, spread over the block.
 template <int HD, int ROWS>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* __restrict__ src,
-                                          size_t stride, int row0, int S) {
+                                          size_t stride, int row0, int n_rows) {
   constexpr int kChunks = HD / 8;
   static_assert((ROWS * kChunks) % kMmaThreads == 0, "tile must split evenly");
 #pragma unroll
   for (int it = 0; it < ROWS * kChunks / kMmaThreads; ++it) {
     const int i = threadIdx.x + it * kMmaThreads;
     const int r = i / kChunks, ch = i % kChunks;
-    const bool ok = row0 + r < S;
+    const bool ok = row0 + r < n_rows;
     const __nv_bfloat16* g = src + (size_t)(ok ? row0 + r : 0) * stride + ch * 8;
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst + off<HD>(r, ch * 8)),
                  "l"(g), "r"(ok ? 16 : 0)
@@ -306,7 +308,8 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                                const __nv_bfloat16* __restrict__ k,
                                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                               int S, int H, int Hkv, int causal, float scale_log2) {
+                               int Sq, int Skv, int H, int Hkv, int causal,
+                               float scale_log2) {
   constexpr int kGroups = BQ / 16;            // row groups of 16 query rows
   constexpr int kSplit = kMmaThreads / 32 / kGroups;   // warps a group
   constexpr uint32_t kTileBytes = kMmaBlockK * row_bytes<HD>();
@@ -324,21 +327,21 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest tiles first
   const size_t q_stride = (size_t)H * HD;
   const size_t kv_stride = (size_t)Hkv * HD;
-  const __nv_bfloat16* qb = q + (size_t)b * S * q_stride + (size_t)h * HD;
-  const __nv_bfloat16* kb = k + (size_t)b * S * kv_stride + (size_t)hk * HD;
-  const __nv_bfloat16* vb = v + (size_t)b * S * kv_stride + (size_t)hk * HD;
-  __nv_bfloat16* ob = o + (size_t)b * S * q_stride + (size_t)h * HD;
+  const __nv_bfloat16* qb = q + (size_t)b * Sq * q_stride + (size_t)h * HD;
+  const __nv_bfloat16* kb = k + (size_t)b * Skv * kv_stride + (size_t)hk * HD;
+  const __nv_bfloat16* vb = v + (size_t)b * Skv * kv_stride + (size_t)hk * HD;
+  __nv_bfloat16* ob = o + (size_t)b * Sq * q_stride + (size_t)h * HD;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int wrow = (warp % kGroups) * 16;     // the warp's first row in the tile
   const int kpart = warp / kGroups;           // keys kpart * kKeys .. of every tile
-  const int kv_end = causal ? min(S, q0 + BQ) : S;
+  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
   const int n_tiles = (kv_end + kMmaBlockK - 1) / kMmaBlockK;
 
-  load_tile<HD, BQ>(qs, qb, q_stride, q0, S);
-  load_tile<HD, kMmaBlockK>(ks0, kb, kv_stride, 0, S);
-  load_tile<HD, kMmaBlockK>(vs0, vb, kv_stride, 0, S);
+  load_tile<HD, BQ>(qs, qb, q_stride, q0, Sq);
+  load_tile<HD, kMmaBlockK>(ks0, kb, kv_stride, 0, Skv);
+  load_tile<HD, kMmaBlockK>(vs0, vb, kv_stride, 0, Skv);
   cp_async_commit();
 
   float acc[kND][4];
@@ -350,8 +353,8 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int st = kt & 1;
     if (kt + 1 < n_tiles) {   // tile kt+1 into the other stage, freed at the end of kt-1
-      load_tile<HD, kMmaBlockK>(ks0 + (st ^ 1) * kTileBytes, kb, kv_stride, (kt + 1) * kMmaBlockK, S);
-      load_tile<HD, kMmaBlockK>(vs0 + (st ^ 1) * kTileBytes, vb, kv_stride, (kt + 1) * kMmaBlockK, S);
+      load_tile<HD, kMmaBlockK>(ks0 + (st ^ 1) * kTileBytes, kb, kv_stride, (kt + 1) * kMmaBlockK, Skv);
+      load_tile<HD, kMmaBlockK>(vs0 + (st ^ 1) * kTileBytes, vb, kv_stride, (kt + 1) * kMmaBlockK, Skv);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -386,14 +389,14 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
     }
 
     const int k0 = kt * kMmaBlockK;
-    if (k0 + kMmaBlockK > S || (causal && k0 + kMmaBlockK - 1 > q0)) {
+    if (k0 + kMmaBlockK > Skv || (causal && k0 + kMmaBlockK - 1 > q0)) {
 #pragma unroll
       for (int j = 0; j < kNS; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + kpart * kKeys + 8 * j + 2 * t + (e & 1);
           const int row = q0 + wrow + g + (e >> 1) * 8;
-          if (key >= S || (causal && key > row)) s[j][e] = -INFINITY;
+          if (key >= Skv || (causal && key > row)) s[j][e] = -INFINITY;
         }
       }
     }
@@ -513,7 +516,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   for (int it = 0; it < 16 * kChunks / 32; ++it) {
     const int i = lane + it * 32;
     const int r = wrow + i / kChunks, ch = i % kChunks;
-    if (q0 + r < S) {
+    if (q0 + r < Sq) {
       *reinterpret_cast<uint4*>(ob + (size_t)(q0 + r) * q_stride + ch * 8) =
           *reinterpret_cast<const uint4*>(tiles + off<HD>(r, ch * 8));
     }
@@ -522,39 +525,39 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
 
 // ------------------------------------------------------------ launches
 template <int HD>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                       int Hkv, int causal, float scale, cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                       int Skv, int H, int Hkv, int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<float, HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(B * H), (unsigned)((S + kBlockQ - 1) / kBlockQ));
+  const dim3 grid((unsigned)(B * H), (unsigned)((Sq + kBlockQ - 1) / kBlockQ));
   flash_attention_kernel<float, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, H, Hkv, causal, scale);
+      static_cast<float*>(o), Sq, Skv, H, Hkv, causal, scale);
   return cudaGetLastError();
 }
 
 template <int HD, int BQ>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                       int Hkv, int causal, float scale, cudaStream_t stream) {
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                       int Skv, int H, int Hkv, int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<HD, BQ>();
   cudaError_t err = cudaFuncSetAttribute(flash_attention_mma_kernel<HD, BQ>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(B * H), (unsigned)((S + BQ - 1) / BQ));
+  const dim3 grid((unsigned)(B * H), (unsigned)((Sq + BQ - 1) / BQ));
   flash_attention_mma_kernel<HD, BQ><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, H, Hkv, causal,
-      scale * 1.4426950408889634f);   // scores in log2 units, for ex2
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Skv, H, Hkv,
+      causal, scale * 1.4426950408889634f);   // scores in log2 units, for ex2
   return cudaGetLastError();
 }
 
 // 128-row blocks read each K/V tile once for twice the rows, but give half
 // the blocks: they are taken when they still fill every SM once.
 template <int HD>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S,
-                        int H, int Hkv, int causal, float scale, cudaStream_t stream) {
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                        int Skv, int H, int Hkv, int causal, float scale, cudaStream_t stream) {
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) & 15)
     return cudaErrorMisalignedAddress;
@@ -562,34 +565,36 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  if ((long long)B * H * ((S + 127) / 128) >= sms)
-    return launch_mma<HD, 128>(q, k, v, o, B, S, H, Hkv, causal, scale, stream);
-  return launch_mma<HD, 64>(q, k, v, o, B, S, H, Hkv, causal, scale, stream);
+  if ((long long)B * H * ((Sq + 127) / 128) >= sms)
+    return launch_mma<HD, 128>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, scale, stream);
+  return launch_mma<HD, 64>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, scale, stream);
 }
 
 template <int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-                   int Hkv, int causal, float scale, int dtype, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
+                   int H, int Hkv, int causal, float scale, int dtype, cudaStream_t stream) {
   switch (dtype) {
-    case 0: return launch_f32<HD>(q, k, v, o, B, S, H, Hkv, causal, scale, stream);
-    case 1: return launch_bf16<HD>(q, k, v, o, B, S, H, Hkv, causal, scale, stream);
+    case 0: return launch_f32<HD>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, scale, stream);
+    case 1: return launch_bf16<HD>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// q [B, Sq, H, hd], k and v [B, Skv, Hkv, hd]; causal needs Skv == Sq.
 // dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                   int S, int H, int Hkv, int hd, int causal, float scale,
-                                   int dtype, void* stream) {
-  if (B < 1 || S < 1 || H < 1 || Hkv < 1 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
-  if ((S + kBlockQ - 1) / kBlockQ > 65535) return (int)cudaErrorInvalidValue;
+                                   int Sq, int Skv, int H, int Hkv, int hd, int causal,
+                                   float scale, int dtype, void* stream) {
+  if (B < 1 || Sq < 1 || Skv < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || (causal && Skv != Sq))
+    return (int)cudaErrorInvalidValue;
+  if ((Sq + kBlockQ - 1) / kBlockQ > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 64: return (int)launch<64>(q, k, v, o, B, S, H, Hkv, causal, scale, dtype, s);
-    case 128: return (int)launch<128>(q, k, v, o, B, S, H, Hkv, causal, scale, dtype, s);
-    case 256: return (int)launch<256>(q, k, v, o, B, S, H, Hkv, causal, scale, dtype, s);
+    case 64: return (int)launch<64>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, scale, dtype, s);
+    case 128: return (int)launch<128>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, scale, dtype, s);
+    case 256: return (int)launch<256>(q, k, v, o, B, Sq, Skv, H, Hkv, causal, scale, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

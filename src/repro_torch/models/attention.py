@@ -18,7 +18,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..kernels.flash_attention.ops import flash_attention
-from .layers import Norm, Params, apply_rope, rms_norm, rotary
+from .layers import Norm, Params, apply_rope, promoted, rms_norm, rotary
 
 __all__ = ["attention", "decode_attention", "decode_positions",
            "DecodePositions", "extend_attention", "extend_positions",
@@ -39,18 +39,20 @@ def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 def dense_causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            causal: bool = True) -> torch.Tensor:
-    """Reference O(S^2)-memory attention. q,k,v: [B, S, H, hd]."""
+    """Reference O(S^2)-memory attention. q: [B, Sq, H, hd]; k, v: [B, Sk,
+    H, hd] (a causal mask is aligned at the bottom right).  Mixed types
+    meet in their common one (:func:`~.layers.promoted`)."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     scale = hd ** -0.5
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    scores = torch.einsum("bqhd,bkhd->bhqk", *promoted(q, k)).float() * scale
     if causal:
         mask = torch.ones(Sq, Sk, dtype=torch.bool,
                           device=q.device).tril(Sk - Sq)
         scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
     # probabilities are cast to q's type before the PV product
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return torch.einsum("bhqk,bkhd->bqhd", *promoted(probs, v))
 
 
 def _online_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -151,31 +153,43 @@ def triangle_chunked_attention(q: torch.Tensor, k: torch.Tensor,
 
 def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
               positions: Optional[torch.Tensor] = None, causal: bool = True,
-              impl: str = "ref", norm: Norm = rms_norm
+              impl: str = "ref", norm: Norm = rms_norm,
+              kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence attention (prefill, train). x: [B, S, D].
 
     Returns ``(out [B, S, D], k, v)``: k and v are [B, S, Hkv, hd] after the
     k-norm and RoPE, the entries a prefill writes into the KV cache.
     ``norm`` is the q/k norm (the train path passes
-    :func:`~.layers.plain_rms_norm`).
+    :func:`~.layers.plain_rms_norm`).  ``kv_override`` supplies externally
+    computed K/V [B, Skv, Hkv, hd] (cross-attention): neither the k-norm
+    nor RoPE is applied to them, and they are returned as given.  Operands
+    of mixed types meet in their common one, as the reference's ``jnp``
+    products promote them.
     """
     B, S, D = x.shape
     h, hd = cfg.n_heads_padded, cfg.hd
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"]).contiguous()
+    q = torch.einsum("bsd,dhk->bshk", *promoted(x, p["wq"]))
+    if kv_override is None:
+        k = torch.einsum("bsd,dhk->bshk", *promoted(x, p["wk"]))
+        v = torch.einsum("bsd,dhk->bshk", *promoted(x, p["wv"])).contiguous()
+    else:
+        k, v = kv_override
     if cfg.qk_norm:
         q = norm(p["q_norm"], q)
-        k = norm(p["k_norm"], k)
+        if kv_override is None:
+            k = norm(p["k_norm"], k)
     if cfg.pos_embed == "rope":
         if positions is None:
             positions = torch.arange(S, device=x.device)[None, :]
         sin, cos = rotary(positions, hd, cfg.rope_theta)
         q = apply_rope(q, sin, cos)
-        k = apply_rope(k, sin, cos)
+        if kv_override is None:
+            k = apply_rope(k, sin, cos)
     if impl == "cuda":
-        out = flash_attention(q.contiguous(), k.contiguous(), v, causal=causal)
+        qc, kc, vc = promoted(q, k, v)
+        out = flash_attention(qc.contiguous(), kc.contiguous(),
+                              vc.contiguous(), causal=causal)
     elif impl == "ref":
         n_rep = h // k.shape[2]
         kr, vr = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
@@ -188,7 +202,7 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     else:
         raise ValueError(f"unknown attention impl {impl!r}; expected one of "
                          f"{IMPLS}")
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), k, v
+    return torch.einsum("bshk,hkd->bsd", *promoted(out, p["wo"])), k, v
 
 
 # --------------------------------------------------------------------------

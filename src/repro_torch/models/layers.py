@@ -10,6 +10,7 @@ have no backward, and the reference trains on its plain route).
 from __future__ import annotations
 
 import functools
+import math
 from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
                     Union)
 
@@ -22,14 +23,26 @@ from ..kernels.rms_norm.ref import rms_norm_ref
 
 __all__ = ["Params", "Spec", "map_params", "layer_params", "unbind_layers",
            "init_from_specs", "embedding_specs", "rms_norm", "plain_rms_norm",
-           "Norm", "rotary", "apply_rope", "mlp", "embed", "unembed",
-           "cross_entropy_loss", "greedy", "dtype_of", "silu", "softplus"]
+           "Norm", "rotary", "apply_rope", "sinusoidal_positions", "mlp",
+           "embed", "unembed", "cross_entropy_loss", "greedy", "dtype_of",
+           "silu", "softplus", "promoted"]
 
 Params = Dict[str, Any]
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
+
+
+def promoted(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``ts`` in their common type, as ``jnp`` promotes the operands of a
+    product: bf16 weights meet fp32 activations (whisper's fp32 frames in
+    training) in fp32.  Torch's products raise on mixed types instead.
+    Tensors already of that type are returned as they are (no op runs)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t if t.dtype == dt else t.to(dt) for t in ts)
 
 
 # --------------------------------------------------------------------------
@@ -109,8 +122,14 @@ def embedding_specs(cfg: ModelConfig) -> Params:
 # norms
 # --------------------------------------------------------------------------
 def rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """fp32 mean of squares, ``(1 + scale)`` gain, cast back to x's type."""
-    return rms_norm_kernel(x.contiguous(), p["scale"], eps)
+    """fp32 mean of squares, ``(1 + scale)`` gain, cast back to x's type.
+
+    The kernel takes one type: a bf16 scale meets fp32 activations cast up
+    (exactly, as the reference's fp32 gain is)."""
+    scale = p["scale"]
+    if scale.dtype != x.dtype and x.dtype == torch.float32:
+        scale = scale.to(x.dtype)
+    return rms_norm_kernel(x.contiguous(), scale, eps)
 
 
 def plain_rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6
@@ -164,15 +183,30 @@ def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n: int, d: int,
+                         device: Optional[Union[str, torch.device]] = None
+                         ) -> torch.Tensor:
+    """Whisper-style sinusoidal table [n, d] (fp32): sines of the first
+    half, cosines of the second, frequencies ``10000^(-i / (half - 1))``."""
+    half = d // 2
+    f32 = torch.float32
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=f32, device=device)
+                      / (half - 1))
+    ang = torch.arange(n, dtype=f32, device=device)[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # --------------------------------------------------------------------------
 # gated MLP (SwiGLU / GeGLU)
 # --------------------------------------------------------------------------
 def mlp(p: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    g = x @ p["w_gate"]
-    u = x @ p["w_up"]
+    x, wg, wu, wd = promoted(x, p["w_gate"], p["w_up"], p["w_down"])
+    g = x @ wg
+    u = x @ wu
     # jax.nn.gelu defaults to the tanh approximation
     g = F.gelu(g, approximate="tanh") if act == "gelu" else F.silu(g)
-    return (g * u) @ p["w_down"]
+    return (g * u) @ wd
 
 
 # --------------------------------------------------------------------------
@@ -195,9 +229,8 @@ def embed(p: Params, tokens: torch.Tensor, scale: bool = False
 
 
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
-    if "unembed" in p:
-        return x @ p["unembed"]
-    return x @ p["embed"].T
+    x, w = promoted(x, p["unembed"] if "unembed" in p else p["embed"].T)
+    return x @ w
 
 
 # --------------------------------------------------------------------------

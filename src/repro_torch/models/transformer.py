@@ -163,12 +163,15 @@ class TransformerLM:
     raises without CUDA unless ``"cpu"`` is passed.
     """
 
+    #: the config families this class builds (``VlmLM``: ``vlm``)
+    FAMILIES: Tuple[str, ...] = ("dense", "moe")
+
     def __init__(self, cfg: ModelConfig, impl: str = "cuda",
                  device: Optional[Union[str, torch.device]] = None) -> None:
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in self.FAMILIES:
             raise NotImplementedError(
-                f"{cfg.name}: TransformerLM serves the dense and moe "
-                f"families, not {cfg.family!r}")
+                f"{cfg.name}: {type(self).__name__} serves the "
+                f"{' and '.join(self.FAMILIES)} families, not {cfg.family!r}")
         if cfg.pos_embed != "rope":
             raise NotImplementedError(
                 f"{cfg.name}: pos_embed={cfg.pos_embed!r} is not ported")

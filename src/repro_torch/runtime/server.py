@@ -203,6 +203,14 @@ class Server(_Serving):
                 raise ValueError(
                     f"request {r.uid}: prompt length {len(r.prompt)} exceeds "
                     f"max_seq={self.max_seq}; the decode state would overrun")
+        if self.cfg.family == "audio":
+            # the reference's Server calls prefill(params, tokens, max_seq),
+            # which the encoder-decoder's prefill(params, frames, tokens,
+            # max_seq) refuses with a TypeError at the first prefill
+            raise TypeError(f"{self.cfg.name}: the audio family's prefill "
+                            f"takes frames and tokens "
+                            f"(runtime.steps.make_prefill_step); Server "
+                            f"serves token prompts only")
         S = max(len(r.prompt) for r in requests)
         toks = np.zeros((self.B, S), np.int32)
         for i, r in enumerate(requests):

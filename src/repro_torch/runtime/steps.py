@@ -1,12 +1,20 @@
-"""The train step, the port's copy of ``repro.runtime.steps``'s
-``make_train_step`` and ``init_all``.
+"""Family-agnostic train / prefill / decode step builders and input specs,
+the port of ``repro.runtime.steps``.
 
-The reference's step is a pure function that ``jax.jit`` compiles; the
-port's updates the params, the optimizer state and the error-feedback
+The reference's train step is a pure function that ``jax.jit`` compiles;
+the port's updates the params, the optimizer state and the error-feedback
 residuals in place, every quantity on the device, so that a CUDA Graph
 captures it whole (``runtime.trainer``).  Gradients come from
 ``torch.autograd.grad`` over detached aliases of the params, so the params
 themselves never require grad.
+
+``make_prefill_step`` dispatches on the family, as the reference's does:
+audio takes ``frames`` and ``tokens``, vlm ``tokens`` and
+``patch_embeds``, the others ``tokens``.  This is the entry point of the
+audio family's prefill and of the vlm family's image prompts; ``Server``
+serves token prompts only.  ``make_input_specs`` gives the batch of one
+(arch, shape) cell as tensors on the ``meta`` device: shapes and types
+without memory.
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..configs.shapes import ShapeConfig
 from ..core.session import ambient_span
 from ..models.layers import map_params
 from ..optim.adamw import (AdamWState, adamw_init, adamw_update_,
@@ -22,7 +31,8 @@ from ..optim.adamw import (AdamWState, adamw_init, adamw_update_,
 from ..optim.compression import ErrorFeedbackState, ef_compress_update_
 from ..optim.schedule import cosine_schedule
 
-__all__ = ["make_train_step", "grads_of", "init_all"]
+__all__ = ["make_train_step", "make_prefill_step", "make_decode_step",
+           "make_input_specs", "grads_of", "init_all"]
 
 Params = Any
 Batch = Dict[str, torch.Tensor]
@@ -84,6 +94,68 @@ def make_train_step(model: Any, cfg: ModelConfig, peak_lr: float = 3e-4,
         return params, opt_state, out_metrics
 
     return train_step
+
+
+def make_prefill_step(model: Any, cfg: ModelConfig, max_seq: int
+                      ) -> Callable:
+    """``prefill_step(params, batch, state=None) -> (state, logits)``: the
+    family's prefill on the batch's inputs.  A given ``state`` (the model's
+    ``init_decode_state``) is filled in place, so that a CUDA Graph can
+    capture the step."""
+    if cfg.family == "audio":
+        def prefill_step(params: Params, batch: Batch, state=None) -> Tuple:
+            return model.prefill(params, batch["frames"], batch["tokens"],
+                                 max_seq, state=state)
+    elif cfg.family == "vlm":
+        def prefill_step(params: Params, batch: Batch, state=None) -> Tuple:
+            return model.prefill(params, batch["tokens"], max_seq,
+                                 patch_embeds=batch["patch_embeds"],
+                                 state=state)
+    else:
+        def prefill_step(params: Params, batch: Batch, state=None) -> Tuple:
+            return model.prefill(params, batch["tokens"], max_seq,
+                                 state=state)
+    return prefill_step
+
+
+def make_decode_step(model: Any, cfg: ModelConfig) -> Callable:
+    """``decode_step(params, state, tokens) -> (state, logits)``: one token
+    for every sequence, the state updated in place."""
+    def decode_step(params: Params, state: Dict[str, torch.Tensor],
+                    tokens: torch.Tensor) -> Tuple:
+        return model.decode_step(params, state, tokens)
+    return decode_step
+
+
+def make_input_specs(cfg: ModelConfig, shape: ShapeConfig
+                     ) -> Dict[str, torch.Tensor]:
+    """The batch of one (arch, shape) cell as ``meta`` tensors, with the
+    reference's shapes and types: frames and patch embeddings in
+    ``param_dtype``, tokens and labels int32."""
+    B, S = shape.global_batch, shape.seq_len
+    emb = getattr(torch, cfg.param_dtype)
+
+    def spec(dims: Tuple[int, ...], dtype: torch.dtype = torch.int32
+             ) -> torch.Tensor:
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": spec((B, 1))}
+    if cfg.family == "audio":
+        S_dec = max(S // cfg.enc_seq_ratio, 1)
+        return {"frames": spec((B, S, cfg.d_model), emb),
+                "tokens": spec((B, S_dec)), "labels": spec((B, S_dec))}
+    if cfg.family == "vlm":
+        S_text = S - cfg.n_patches
+        out = {"tokens": spec((B, S_text)),
+               "patch_embeds": spec((B, cfg.n_patches, cfg.d_model), emb)}
+        if shape.kind == "train":
+            out["labels"] = spec((B, S_text))
+        return out
+    out = {"tokens": spec((B, S))}
+    if shape.kind == "train":
+        out["labels"] = spec((B, S))
+    return out
 
 
 def init_all(model: Any, cfg: ModelConfig, seed: int = 0,

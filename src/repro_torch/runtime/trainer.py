@@ -5,9 +5,10 @@ Every launch is one doorbell and, on the card, one CUDA Graph replay
 
 * the params, the fp32 master weights and moments, the step counter and the
   error-feedback residuals are fixed tensors that the captured steps update
-  in place; only the batch is copied in before each launch, into a fixed
-  ``[B, S]`` buffer (K = 1) or ``[K, B, S]`` one (K > 1, the reference's
-  stacked ``lax.scan`` input);
+  in place; only the batch is copied in before each launch, into fixed
+  buffers shaped as the pipeline's first batch (tokens and labels, with
+  fp32 frames for audio or patch embeddings for vlm), one batch (K = 1)
+  or K stacked (K > 1, the reference's ``lax.scan`` input);
 * the first launch is the capture's eager warm-up, which is a real launch
   of K steps; the capture follows it and every later launch replays the
   graph.  There is no eager fallback: a failed capture raises;
@@ -32,7 +33,7 @@ from ..configs.base import ModelConfig
 from ..configs.shapes import ShapeConfig
 from ..core.graphs import CapturedStep
 from ..core.session import TraceSession
-from ..data.pipeline import make_pipeline
+from ..data.pipeline import SyntheticTokens, make_pipeline
 from ..device import resolve_device
 from ..models import get_model
 from ..models.layers import Params
@@ -44,7 +45,6 @@ from .fault_tolerance import FleetMonitor
 from .steps import init_all, make_train_step
 
 __all__ = ["Trainer"]
-
 
 class Trainer:
     """Train ``cfg`` on the deterministic synthetic pipeline at ``shape``.
@@ -101,11 +101,13 @@ class Trainer:
                          else None)
         self._step_fn = make_train_step(self.model, cfg, peak_lr=peak_lr,
                                         grad_compression=grad_compression)
-        B, S = shape.global_batch, shape.seq_len
+        # the family's batch, shaped as the pipeline draws it: tokens and
+        # labels, with fp32 frames (audio) or patch embeddings (vlm)
         lead = () if self.k == 1 else (self.k,)
-        self._batch = {key: torch.zeros(lead + (B, S), dtype=torch.int32,
-                                        device=self.device)
-                       for key in ("tokens", "labels")}
+        self._batch = {
+            key: torch.zeros(lead + a.shape, dtype=torch.from_numpy(a).dtype,
+                             device=self.device)
+            for key, a in SyntheticTokens(cfg, shape, seed).batch_at(0).items()}
         self._loss = torch.zeros(self.k, dtype=torch.float32,
                                  device=self.device)
         self._graph = CapturedStep(self._steps, self.device)

@@ -22,7 +22,8 @@ from repro_torch.core.dma import inline_put
 from repro_torch.kernels import launches, reset_launches
 from repro_torch.kernels.dma_copy.ops import dma_copy
 from repro_torch.kernels.dma_copy.ref import dma_copy_ref, dma_copy_tiled
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_cost)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.rms_norm.ops import rms_norm
 from repro_torch.kernels.rms_norm.ref import rms_norm_ref
@@ -35,6 +36,7 @@ DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 RMS_TOL = {"float32": 2e-5, "bfloat16": 2e-2}       # tests/test_kernels.py
 FLASH_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
+FLASH_BF16_REL_L2, FLASH_BF16_REL_MAX = 1e-2, 3e-2
 SSD_TOL = {"float32": 1e-3, "bfloat16": 6e-2}
 
 
@@ -90,6 +92,56 @@ def test_flash_plain_matches_reference(B, S, H, Hkv, hd, causal, dtype):
     assert out.dtype == q.dtype and out.shape == q.shape
     close(out, jax_flash_ref(qj, kj, vj, causal=causal), FLASH_TOL[dtype])
     close(out, jax_dense(qj, kj, vj, causal=causal), FLASH_TOL[dtype])
+
+
+# (Sq, Skv): whisper's cross-attention shape cut down (17 decoder tokens
+# against 100 frames), its transpose, one query, one key
+CROSS_LENGTHS = [(1, 37), (17, 100), (100, 17), (9, 1)]
+
+
+@pytest.mark.parametrize("Sq,Skv", CROSS_LENGTHS)
+@pytest.mark.parametrize("Hkv,hd", [(4, 64), (2, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_cross_lengths_match_reference(Sq, Skv, Hkv, hd, dtype):
+    """Non-causal K/V of another length than Q (cross-attention), at the
+    flash tolerances, against the reference's oracle and dense attention,
+    which take Sk != Sq."""
+    B, H = 2, 4
+    q_np = rng.normal(size=(B, Sq, H, hd)).astype(np.float32)
+    k_np = rng.normal(size=(B, Skv, Hkv, hd)).astype(np.float32)
+    v_np = rng.normal(size=(B, Skv, Hkv, hd)).astype(np.float32)
+    q, qj = both(q_np, dtype)
+    k, _ = both(k_np, dtype)
+    v, _ = both(v_np, dtype)
+    _, kj = both(np.repeat(k_np, H // Hkv, axis=2), dtype)
+    _, vj = both(np.repeat(v_np, H // Hkv, axis=2), dtype)
+    out = flash_attention(q, k, v, causal=False)
+    assert out.dtype == q.dtype and out.shape == q.shape
+    close(out, jax_flash_ref(qj, kj, vj, causal=False), FLASH_TOL[dtype])
+    close(out, jax_dense(qj, kj, vj, causal=False), FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("Sq,Skv", CROSS_LENGTHS)
+def test_flash_wrapper_rejects_causal_cross_lengths(Sq, Skv):
+    q = torch.ones(1, Sq, 4, 64)
+    k = v = torch.ones(1, Skv, 2, 64)
+    with pytest.raises(ValueError, match="causal"):
+        flash_attention(q, k, v, causal=True)
+
+
+@pytest.mark.parametrize("Sq,Skv,causal", [(375, 1500, False), (1500, 1500, False),
+                                           (375, 375, True), (7, 7, False)])
+def test_flash_cost_counts_pairs_and_bytes(Sq, Skv, causal):
+    """Sq * Skv query-key pairs without the mask, S(S+1)/2 with it; q, k
+    and v read once at their own lengths, the output written once."""
+    B, H, Hkv, hd = 4, 16, 8, 64
+    q = torch.empty(B, Sq, H, hd, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(B, Skv, Hkv, hd, dtype=torch.bfloat16, device="meta")
+    cost = flash_attention_cost(q, k, k, causal=causal)
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+    assert cost.flops == 4 * B * H * hd * pairs
+    assert cost.operand_bytes == 2 * (B * Sq * H * hd + 2 * B * Skv * Hkv * hd)
+    assert cost.result_bytes == 2 * B * Sq * H * hd
 
 
 def flash_bf16_emulated(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -365,6 +417,31 @@ def test_flash_kernel_on_card(S, Hkv, hd, causal, dtype):
     assert launches["flash_attention"] == before + 1
     ref = flash_attention_ref(q, k, v, causal=causal)
     close(out.cpu(), ref.float().cpu().numpy(), FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv", CROSS_LENGTHS + [(375, 1500), (1, 1500),
+                                                   (375, 1)])
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_cross_lengths_on_card(Sq, Skv, hd, dtype):
+    _need_card()
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, n, h, hd)).astype(
+        np.float32)).to("cuda", DTYPES[dtype][0])
+        for n, h in ((Sq, 8), (Skv, 2), (Skv, 2)))
+    before = launches["flash_attention"]
+    out = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert launches["flash_attention"] == before + 1
+    ref = flash_attention_ref(q, k, v, causal=False).float().cpu()
+    close(out.cpu(), ref.numpy(), FLASH_TOL[dtype])
+    if dtype == "bfloat16":
+        # a softmax over 1500 keys leaves outputs of RMS ~0.04, so bf16 is
+        # also held relative to the reference's scale (rounding alone gives
+        # a relative L2 of ~2.5e-3; dropping a 28-key tail tile ~0.14)
+        err = out.float().cpu() - ref
+        assert (err.norm() / ref.norm()).item() <= FLASH_BF16_REL_L2
+        assert err.abs().max().item() <= FLASH_BF16_REL_MAX * ref.abs().max().item()
 
 
 @pytest.mark.cuda

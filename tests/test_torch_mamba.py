@@ -20,7 +20,7 @@ from repro.configs import SMOKE_ARCHS as REF_SMOKE
 from repro.configs.mamba2_780m import CONFIG as REF_CONFIG
 from repro.models.ssm import MambaLM as RefLM
 from repro_torch.configs import ARCHS, SMOKE_ARCHS
-from repro_torch.models import MambaLM, get_model
+from repro_torch.models import EncDecLM, MambaLM, VlmLM, get_model
 from repro_torch.weights import params_from_jax
 
 ARCH = "mamba2-780m"
@@ -163,7 +163,16 @@ def test_params_from_jax_keeps_fp32_leaves_in_a_bf16_model():
 
 
 def test_unported_families_raise():
-    for family in ("audio", "vlm"):
-        cfg = dataclasses.replace(SMOKE_ARCHS[ARCH], family=family)
-        with pytest.raises(NotImplementedError):
-            get_model(cfg, device="cpu")
+    """Every family of the reference is ported: get_model builds whisper's
+    EncDecLM and llava's VlmLM; a Mamba config under the audio family is
+    refused (no encoder-decoder), as is a family the reference lacks."""
+    assert type(get_model(SMOKE_ARCHS["whisper-medium"],
+                          device="cpu")) is EncDecLM
+    assert type(get_model(SMOKE_ARCHS["llava-next-34b"],
+                          device="cpu")) is VlmLM
+    with pytest.raises(ValueError, match="encoder-decoder"):
+        get_model(dataclasses.replace(SMOKE_ARCHS[ARCH], family="audio"),
+                  device="cpu")
+    with pytest.raises(ValueError, match="family"):
+        get_model(dataclasses.replace(SMOKE_ARCHS[ARCH], family="video"),
+                  device="cpu")

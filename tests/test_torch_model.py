@@ -20,7 +20,7 @@ from repro.configs import SMOKE_ARCHS as REF_SMOKE
 from repro.models.layers import embed as ref_embed
 from repro.models.transformer import TransformerLM as RefLM
 from repro_torch.configs import SMOKE_ARCHS
-from repro_torch.models import TransformerLM, get_model
+from repro_torch.models import EncDecLM, TransformerLM, get_model
 from repro_torch.models.layers import embed
 from repro_torch.weights import params_from_jax
 
@@ -136,9 +136,11 @@ def test_decode_write_clamps_at_cache_end():
 
 
 def test_unported_family_raises():
-    audio = dataclasses.replace(SMOKE_ARCHS["gemma-2b"], family="audio")
-    with pytest.raises(NotImplementedError):
-        get_model(audio, device="cpu")
+    """get_model builds the audio family's EncDecLM (every family is
+    ported); TransformerLM still refuses the hybrid family and learned
+    positions."""
+    assert type(get_model(SMOKE_ARCHS["whisper-medium"],
+                          device="cpu")) is EncDecLM
     with pytest.raises(NotImplementedError):
         TransformerLM(dataclasses.replace(SMOKE_ARCHS["gemma-2b"],
                                           family="hybrid"), device="cpu")

@@ -45,7 +45,8 @@ from repro.runtime.traffic import replay as ref_replay
 from repro_torch.configs import ARCHS, SMOKE_ARCHS
 from repro_torch.core.session import TraceSession
 from repro_torch.launch import serve
-from repro_torch.models import HybridLM, TransformerLM, get_model
+from repro_torch.models import (EncDecLM, HybridLM, TransformerLM, VlmLM,
+                                get_model)
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.runtime.server import (ContinuousBatchingServer, Request,
                                         Server)
@@ -126,8 +127,8 @@ def argmax(logits):
 
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_registered_configs_are_copies_of_the_reference(arch):
-    assert set(ARCHS) == set(SMOKE_ARCHS) and len(ARCHS) == 8
-    assert set(ARCHS) < set(REF_ARCHS)
+    assert set(ARCHS) == set(SMOKE_ARCHS) == set(REF_ARCHS)
+    assert len(ARCHS) == 10
     for mine, theirs in ((ARCHS, REF_ARCHS), (SMOKE_ARCHS, REF_SMOKE)):
         assert dataclasses.asdict(mine[arch]) == dataclasses.asdict(
             theirs[arch])
@@ -140,11 +141,9 @@ def test_get_model_builds_the_families():
                       ("jamba-v0.1-52b", HybridLM),
                       ("llama3-405b", TransformerLM)):
         assert type(get_model(SMOKE_ARCHS[arch], device="cpu")) is cls
-    for family in ("audio", "vlm"):
-        cfg = dataclasses.replace(SMOKE_ARCHS["qwen2-moe-a2.7b"],
-                                  family=family)
-        with pytest.raises(NotImplementedError):
-            get_model(cfg, device="cpu")
+    for arch, cls in (("whisper-medium", EncDecLM),
+                      ("llava-next-34b", VlmLM)):
+        assert type(get_model(SMOKE_ARCHS[arch], device="cpu")) is cls
 
 
 # -- weights ----------------------------------------------------------------
@@ -415,7 +414,11 @@ def test_serve_cli_smoke_on_cpu(arch, capsys):
                                       ("loadtest", "jamba-v0.1-52b"),
                                       ("loadtest", "grok-1-314b"),
                                       ("loadtest paged", "grok-1-314b"),
-                                      ("tune", "llama3-405b")])
+                                      ("tune", "llama3-405b"),
+                                      ("train", "whisper-medium"),
+                                      ("train", "llava-next-34b"),
+                                      ("loadtest", "llava-next-34b"),
+                                      ("loadtest paged", "llava-next-34b")])
 def test_clis_take_the_new_archs(cli, arch, tmp_path, monkeypatch, capsys):
     """The train, loadtest and tuner CLIs take the new names through
     ``--arch``, with no new flag.  MoE also runs paged and chunked, but is
