@@ -268,6 +268,34 @@ W2. llava-next-34b at full width on 8 of its 60 layers (d 7168, GQA 56/8
     prompt of 576 patch embeddings and 64 tokens (max_seq 704) through the
     steps with W1's checks; its fp32 half last;
 
+then phase M, the port's distributed layer on the card (one card: NCCL
+refuses two ranks on one GPU, so the multi-rank semantics are held on gloo
+ranks in the CPU tests, and here the same code runs on a world of one):
+
+M0. a one-rank NCCL process group over a FileStore in a temp dir and
+    ``make_mesh(1, 1)``; one eager all_reduce on each mesh group before any
+    capture (a graph captures an existing communicator); the NCCL version;
+M1. gemma-2b at full width and depth, B=8, max_seq 1024, the state from a
+    seeded 64-token prompt's prefill through ``state_from_lm``;
+    ``PPDecoder``'s launch (``make_local_step`` on ``shard_params`` /
+    ``shard_state`` blocks) at T=1 (32 launches) and T=4 (8), each launch
+    one graph replay rung as a doorbell (counts zeroed just before, read
+    just after), fed the sequential path's greedy tokens and held to the
+    sequential ``decode_step`` graph on the same weights and state: each
+    launch's logits within 3e-2 relative L2, the argmax equal but for
+    counted near-ties; the PP graph decoded (nodes by kernel, NCCL's
+    included) and held to the profiler (as S2), its RMSNorm nodes 2L+1, its
+    copy nodes under 1% of the weights' bytes a replay; both graphs' replays
+    timed, the PP graph's roofline; then an fp32 copy on 4 layers within
+    1e-3 with the argmax equal;
+M2. llama3-405b at full width on 2 of its 126 layers (GQA 128/8, untied,
+    21 GB), B=8, max_seq 32768, a seeded random bf16 cache at length
+    32704, M1's checks at T=1 and T=4;
+M3. ``moe_sorted_smap`` under the mesh on one qwen2-moe-a2.7b MoE block
+    ([4, 256, 2048] bf16) bit-equal to ``moe_sorted``;
+M4. every architecture's ``ShardingRules`` replicating on the (1, 1)
+    mesh; the production layout's dropped axes; the phase's seconds;
+
 every profiler window of the script (phase 5, C1, S2, K1-K2, T3 and the
 device times) matches torch.profiler's records to their launches by
 correlation id: a graph launch to its decoded nodes, an eager kernel
@@ -312,12 +340,14 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import resolve_device  # noqa: E402
-from repro_torch.configs import ARCHS, SMOKE_ARCHS, ModelConfig  # noqa: E402
+from repro_torch.configs import (ARCHS, SHAPES, SMOKE_ARCHS,  # noqa: E402
+                                 ModelConfig, resolve)
 from repro_torch.configs.shapes import ShapeConfig  # noqa: E402
 from repro_torch.core import (H100_SXM, INLINE_THRESHOLD_DEFAULT,  # noqa: E402
                               SPAN_EVENT, CommandStreamCapture, HybridMover,
@@ -329,6 +359,10 @@ from repro_torch.core.graphs import (LAUNCH_MODES, CapturedStep,  # noqa: E402
                                      record_captures)
 from repro_torch.core.stream import (decode_graph, kernel_base,  # noqa: E402
                                      kernel_label)
+from repro_torch.distributed.context import set_mesh  # noqa: E402
+from repro_torch.distributed.pp_decode import PPDecoder  # noqa: E402
+from repro_torch.distributed.sharding import (ShardingRules,  # noqa: E402
+                                              mesh_axis_size)
 from repro_torch.kernels import (KernelCost, _build, launches,  # noqa: E402
                                  reset_launches)
 from repro_torch.kernels.dma_copy.ops import (MODES, dma_copy,  # noqa: E402
@@ -341,11 +375,15 @@ from repro_torch.kernels.rms_norm.ops import rms_norm, rms_norm_cost  # noqa: E4
 from repro_torch.kernels.rms_norm.ref import rms_norm_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_cost  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
+from repro_torch.launch.mesh import MeshLayout, make_mesh  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
+from repro_torch.models import param_specs as model_param_specs  # noqa: E402
 from repro_torch.models import mamba as mamba_block_module  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
-from repro_torch.models.layers import layer_params, map_params  # noqa: E402
-from repro_torch.models.moe import capacity, moe_dense, moe_sorted  # noqa: E402
+from repro_torch.models.layers import (init_from_specs,  # noqa: E402
+                                       layer_params, map_params)
+from repro_torch.models.moe import (capacity, moe_dense,  # noqa: E402
+                                    moe_sorted, moe_sorted_smap, moe_specs)
 from repro_torch.runtime.steps import (make_decode_step,  # noqa: E402
                                        make_input_specs, make_prefill_step)
 from repro_torch.runtime.server import (ContinuousBatchingServer,  # noqa: E402
@@ -3611,6 +3649,449 @@ def w_path(card: str, device: torch.device
     return counts, steps
 
 
+# ---------------------------------------------------------------- phase M
+# the mesh phase: the port's distributed layer on a one-rank mesh of the
+# card (NCCL; multi-rank semantics are held on the CPU, on gloo ranks).
+# M1: gemma-2b at full width and depth, the state from a seeded prompt's
+# prefill; M2: llama3-405b (the config the reference built the pipeline
+# for, decode_32k) at full width on 2 of its 126 layers, decode_32k's 128
+# sequences over SINGLE_POD's 16 stages (B=8), a seeded random cache at
+# length 32704 of 32768.  Each PP launch is one graph replay, held to the
+# port's sequential decode_step on the same weights, state and tokens.
+M_PATHS = {"gemma-2b": {"n_layers": None, "batch": 8, "max_seq": 1024,
+                        "prompt": 64},
+           "llama3-405b": {"n_layers": 2, "batch": 8, "max_seq": 32768,
+                           "length": 32704}}
+M_LAUNCHES = {1: 32, 4: 8}           # launches at each T: 32 tokens either way
+M_FP32 = {"arch": "gemma-2b", "n_layers": 4, "launches": {1: 8, 4: 2}}
+M_BF16_REL_TOL = 3e-2                # relative L2 of a launch's logits
+M_FP32_REL_TOL = 1e-3
+M_NEAR_TIE_RMS = 4.0                 # a bf16 flip's gap, in row RMS |diff|
+M_COPY_SHARE = 0.01                  # a replay's copy nodes, of the weights
+M_MOE = "qwen2-moe-a2.7b"
+M_MOE_SHAPE = (4, 256)               # [B, S] of the MoE block's input
+M_RULES_LOGGED = ("gemma-2b", "llama3-405b")
+
+
+def pp_norms(cfg: ModelConfig) -> int:
+    """RMSNorm calls of one PP launch on one stage of the whole stack (one
+    tick): two a layer and the final one, as phase 5 counts them, and the
+    q and k norms where the config has them."""
+    return (4 if cfg.qk_norm else 2) * cfg.n_layers + 1
+
+
+def m_state(cfg: ModelConfig, model, params, spec: Dict[str, Any],
+            device: torch.device) -> Tuple[Dict[str, torch.Tensor],
+                                           torch.Tensor]:
+    """The decode state both paths start from and the first token of each
+    sequence: the prefill of a seeded prompt (M1), or a seeded random bf16
+    cache at ``length`` and seeded tokens (M2)."""
+    B, S = spec["batch"], spec["max_seq"]
+    g = torch.Generator(device=device).manual_seed(0)
+    if "prompt" in spec:
+        prompt = torch.randint(0, cfg.vocab_size, (B, spec["prompt"]),
+                               generator=g, device=device, dtype=torch.int32)
+        state, logits = model.prefill(params, prompt, S)
+        return state, argmax_tokens(logits)
+    state = model.init_decode_state(B, S)
+    for key in ("k", "v"):
+        state[key].normal_(generator=g)
+    state["length"].fill_(spec["length"])
+    first = torch.randint(0, cfg.vocab_size, (B, 1), generator=g,
+                          device=device, dtype=torch.int32)
+    return state, first
+
+
+def m_reset(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor]
+            ) -> None:
+    """Copy a decode state into another one's buffers (their addresses stay,
+    as the captured graphs read them); a PP state's wire is zeroed."""
+    for key, t in dst.items():
+        if key == "wire":
+            t.zero_()
+        else:
+            t.copy_(src[key].view(t.shape))
+
+
+def held_logits(label: str, got: List[torch.Tensor],
+                want: List[torch.Tensor], rel_tol: float, exact: bool
+                ) -> Dict[str, Any]:
+    """The PP launches' logits against the sequential path's: each launch's
+    relative L2 within ``rel_tol``, the argmax equal everywhere (``exact``)
+    or else at every position but near-ties, which are counted.  A flip is
+    a near-tie when the sequential top logit exceeds the sequential logit
+    of the PP choice by at most ``M_NEAR_TIE_RMS`` times the row's RMS
+    |PP - sequential|, or by one bf16 step of the top logit where that is
+    more: a flip needs the two routes' differences at its two entries to
+    exceed the gap, and a route's rounding noise passes 4 RMS on a given
+    pair about once in 400 rows.  A wrong token sits many RMS below the
+    top, and moves the RMS of a row of V entries by little."""
+    worst, flips, ties, ratios = 0.0, 0, 0, []
+    for n, (a, b) in enumerate(zip(got, want)):
+        a, b = a.float(), b.float()
+        err = rel_l2(a, b)
+        worst = max(worst, err)
+        pa, pb = a.argmax(dim=-1), b.argmax(dim=-1)
+        diff = pa != pb
+        if diff.any():
+            top = b.gather(-1, pb[..., None])[..., 0]
+            gap = top - b.gather(-1, pa[..., None])[..., 0]
+            rms = (a - b).square().mean(dim=-1).sqrt()
+            step = torch.exp2(torch.floor(torch.log2(top.abs().clamp_min(
+                2.0 ** -126))) - 7)
+            near = diff & (gap <= torch.maximum(M_NEAR_TIE_RMS * rms, step))
+            flips += int(diff.sum())
+            ties += int(near.sum())
+            ratios += (gap[diff] / rms[diff].clamp_min(1e-30)).tolist()
+            if exact or int(near.sum()) != int(diff.sum()):
+                raise AssertionError(
+                    f"{label}: launch {n}: {int(diff.sum())} argmax differ "
+                    f"from the sequential decode's, {int(near.sum())} of them "
+                    f"near-ties (gaps {gap[diff].tolist()[:8]}, row RMS "
+                    f"|difference| {rms[diff].tolist()[:8]})")
+        if not err <= rel_tol:
+            raise AssertionError(f"{label}: launch {n}: logits relative L2 "
+                                 f"{err:.3e} > {rel_tol}")
+    log(f"{label}: {len(got)} launches' logits against the sequential "
+        f"decode's: worst relative L2 {worst:.3e} (tol {rel_tol}); argmax "
+        f"equal at all but {flips} of {sum(t.shape[0] * t.shape[1] for t in got)}"
+        f" positions, {ties} of them near-ties (gap / row RMS |difference|: "
+        f"{', '.join(f'{r:.2f}' for r in sorted(ratios))})")
+    return {"worst_rel_l2": worst, "flips": flips, "near_ties": ties}
+
+
+def held_cache(label: str, pp_k: Dict[str, torch.Tensor],
+               seq: Dict[str, torch.Tensor], base: Dict[str, torch.Tensor],
+               n_tok: int, rel_tol: float) -> float:
+    """The K/V rows both paths wrote, positions ``base['length']`` ..
+    ``+ n_tok`` of every layer, against the sequential cache's: each
+    layer's relative L2 within ``rel_tol``; every other row untouched by
+    both (bit-equal to ``base``'s).  ``pp_k`` is the PP cache as
+    [L, B, S, Hkv, hd] views.  Returns the worst layer's relative L2."""
+    lo = int(base["length"])
+    hi = lo + n_tok
+    worst = 0.0
+    for key in ("k", "v"):
+        a, b = pp_k[key], seq[key]
+        for layer in range(b.shape[0]):
+            err = rel_l2(a[layer, :, lo:hi].float(), b[layer, :, lo:hi].float())
+            worst = max(worst, err)
+            if not err <= rel_tol:
+                raise AssertionError(
+                    f"{label}: {key} rows {lo}..{hi} of layer {layer}: "
+                    f"relative L2 {err:.3e} against the sequential cache's "
+                    f"> {rel_tol}")
+        for part in (slice(0, lo), slice(hi, b.shape[2])):
+            if not (torch.equal(a[:, :, part], base[key][:, :, part])
+                    and torch.equal(b[:, :, part], base[key][:, :, part])):
+                raise AssertionError(f"{label}: {key} rows {part.start}.."
+                                     f"{part.stop} changed outside the "
+                                     f"written window")
+    log(f"{label}: K/V rows {lo}..{hi} of {seq['k'].shape[0]} layers against "
+        f"the sequential cache's: worst layer relative L2 {worst:.3e} (tol "
+        f"{rel_tol}); every other row untouched by both")
+    return worst
+
+
+def pp_graph_checks(card: str, label: str, cfg: ModelConfig, step,
+                    weight_bytes: int, n_params_: int, B: int, T: int
+                    ) -> Dict[str, Any]:
+    """S2's checks of one PP launch graph (``held_to_graph``: its kernel
+    nodes by function equal the profiler's records of one replay and the
+    counted launches), its nodes by kernel (NCCL's included), its RMSNorm
+    nodes against the launch's norm calls, and the bytes its copy nodes
+    move a replay against ``M_COPY_SHARE`` of the weights'."""
+    cs = CommandStreamCapture().capture_compiled(label, step)
+    counts = held_to_graph(label, step, cs)
+    kernels = decoded_kernels(cs.graph_stream)
+    nccl = {k: n for k, n in kernels.items() if "nccl" in k.lower()}
+    norms = sum(n for k, n in kernels.items() if "rms_norm" in k)
+    if norms != pp_norms(cfg) or step.launches.get("rms_norm") != norms:
+        raise AssertionError(f"{label}: {norms} RMSNorm nodes, "
+                             f"{dict(step.launches)} counted, "
+                             f"{pp_norms(cfg)} norm calls a launch")
+    copy_b = sum(e.result_bytes for e in cs.graph_stream.entries
+                 if e.opcode == "memcpy")
+    fill_b = sum(e.result_bytes for e in cs.graph_stream.entries
+                 if e.opcode == "memset")
+    log(f"{label}: nodes by kernel "
+        + ", ".join(f"{k} x{n}" for k, n in kernels.most_common(12))
+        + f"; NCCL kernel nodes {nccl or 'none'}; copy nodes "
+        f"{counts.get('memcpy', 0)} moving {copy_b} B a replay "
+        f"({copy_b / weight_bytes:.3%} of the weights' {weight_bytes} B), "
+        f"fill nodes {counts.get('memset', 0)} ({fill_b} B)")
+    if copy_b >= M_COPY_SHARE * weight_bytes:
+        raise AssertionError(f"{label}: copy nodes move {copy_b} B a replay, "
+                             f"{M_COPY_SHARE:.0%} of the weights is "
+                             f"{M_COPY_SHARE * weight_bytes:.0f} B")
+    rep = analyze(cs, chips=1, model_flops_total=2 * n_params_ * B * T,
+                  name=label)
+    return {"nodes": cs.n_ops, "copy_bytes": copy_b, "report": rep}
+
+
+def pp_run(card: str, label: str, cfg: ModelConfig, model, params,
+           base: Dict[str, torch.Tensor], tokens: torch.Tensor, T: int,
+           n_launch: int, mesh, device: torch.device, rel_tol: float,
+           exact: bool, graphs: bool) -> Dict[str, Any]:
+    """One T: the sequential decode (T ``decode_step`` calls, one graph) and
+    the PP launch (``make_local_step`` on ``shard_params``/``shard_state``
+    blocks, one graph), each from its own copy of ``base``, fed the same
+    tokens [B, T * n_launch]; the PP replays are doorbells on one
+    TraceSession, counted launches zeroed just before and read just after
+    them.  With ``graphs``: the PP graph decoded and held (S2), both
+    replays timed (CUDA events) and the PP graph's roofline."""
+    B, S = base["k"].shape[1], base["k"].shape[2]
+    seq = {k: v.clone() for k, v in base.items()}
+    pp = PPDecoder(cfg, mesh, tokens_per_launch=T)
+    pp_state = pp.state_from_lm({k: v.clone() for k, v in base.items()})
+    lp = pp.shard_params(pp.params_from_lm(params))
+    ls = pp.shard_state(pp_state)
+    launch = pp.make_local_step(B, S)
+    tok = torch.zeros(B, T, dtype=torch.int32, device=device)
+
+    def sequential() -> torch.Tensor:
+        return torch.cat([model.decode_step(params, seq, tok[:, j:j + 1])[1]
+                          for j in range(T)], dim=1)
+
+    seq_step = CapturedStep(sequential, device)
+    pp_step = CapturedStep(lambda: launch(lp, ls, tok), device)
+    with record_captures():
+        for step in (seq_step, pp_step):
+            step.capture() if device.type == "cuda" else step()
+    m_reset(seq, base)
+    m_reset(pp_state, base)
+    want = []
+    for n in range(n_launch):
+        tok.copy_(tokens[:, n * T:(n + 1) * T])
+        want.append(seq_step().clone())
+    sess = TraceSession(name=label)
+    ring = sess.doorbell.wrap(lambda t: pp_step(), "pp_decode")
+    got = []
+    reset_launches()
+    for n in range(n_launch):
+        tok.copy_(tokens[:, n * T:(n + 1) * T])
+        got.append(ring(tok).clone())
+    counts = dict(launches)
+    doorbells = sess.doorbell.count
+    if doorbells != n_launch:
+        raise AssertionError(f"{label}: {doorbells} doorbells for "
+                             f"{n_launch} launches")
+    want_norms = n_launch * pp_step.launches.get("rms_norm", 0)
+    if counts.get("rms_norm", 0) != want_norms:
+        raise AssertionError(f"{label}: {counts} launches counted, "
+                             f"{want_norms} RMSNorm expected")
+    if int(pp_state["length"]) != int(base["length"]) + n_launch * T:
+        raise AssertionError(f"{label}: length {int(pp_state['length'])}")
+    log(f"{label}: {n_launch} launches of {T} tokens, {doorbells} doorbells "
+        f"(one graph replay each), kernel launches {counts}; a launch graph "
+        f"{dict(pp_step.launches)}")
+    out: Dict[str, Any] = {"counts": counts, **held_logits(
+        label, got, want, rel_tol, exact)}
+    del got, want
+    L = cfg.n_layers
+    pp_k = {key: pp_state[key].flatten(0, 1)[:L] for key in ("k", "v")}
+    out["kv_rel_l2"] = held_cache(label, pp_k, seq, base, n_launch * T,
+                                  rel_tol)
+    if graphs:
+        leaves = _leaves(params)
+        weight_b = sum(t.numel() * t.element_size() for t in leaves)
+        g = pp_graph_checks(card, label, cfg, pp_step, weight_b,
+                            n_params(params), B, T)
+        reps = max(1, min(8, (S - int(base["length"])) // T // 2 - 1))
+        t = {}
+        for name, step, state in (("pp", pp_step, pp_state),
+                                  ("sequential", seq_step, seq)):
+            m_reset(state, base)
+            t[name] = time_ms(step, reps=reps, warmup=1)
+        rep = g["report"]
+        bound = rep.step_time_s * 1e3
+        log(f"{card} | roofline {label}: compute {rep.compute_s * 1e3:.4f} ms "
+            f"({rep.flops_per_device / 1e9:.3f} GFLOP), memory "
+            f"{rep.memory_s * 1e3:.4f} ms ({rep.hbm_bytes_per_device / 1e9:.4f}"
+            f" GB), bound {bound:.4f} ms ({rep.bottleneck}); measured replay "
+            f"{t['pp']:.4f} ms: {bound / t['pp']:.1%} of the roofline; graph "
+            f"{g['nodes']} nodes")
+        log(f"{card} | {label} B={B}: PP launch replay {t['pp']:.3f} ms, "
+            f"sequential decode graph replay {t['sequential']:.3f} ms "
+            f"({T} decode_step calls), ratio {t['pp'] / t['sequential']:.3f}; "
+            f"{B * T / t['pp'] * 1e3:.1f} tokens/s replayed")
+        out.update(times=t, nodes=g["nodes"], copy_bytes=g["copy_bytes"],
+                   roofline_share=bound / t["pp"])
+    del pp_step, seq_step, seq, pp_state, lp, ls
+    free()
+    return out
+
+
+def m_tokens(model, params, base: Dict[str, torch.Tensor],
+             first: torch.Tensor, n: int) -> torch.Tensor:
+    """The sequential path's greedy tokens [B, n] from ``base``: the
+    tokens both paths are fed."""
+    state = {k: v.clone() for k, v in base.items()}
+    out, cur = [first], first
+    for _ in range(n - 1):
+        state, logits = model.decode_step(params, state, cur)
+        cur = argmax_tokens(logits)
+        out.append(cur)
+    del state
+    return torch.cat(out, dim=1)
+
+
+def pp_path(card: str, arch: str, spec: Dict[str, Any], mesh,
+            device: torch.device, label: str, dtype: Optional[str] = None,
+            launches_at: Optional[Dict[int, int]] = None,
+            graphs: bool = True,
+            cut: str = "all of one card's memory would not hold the "
+                       "published depth") -> Dict[str, Any]:
+    """One model through the PP launch at T=1 and T=4 (``pp_run``)."""
+    cfg = ARCHS[arch]
+    if spec.get("n_layers") is not None:
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+        log(f"{cfg.name}: depth cut to {cfg.n_layers} of "
+            f"{ARCHS[arch].n_layers} layers ({cut})")
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype)
+    exact = cfg.param_dtype == "float32"
+    model = get_model(cfg, impl="cuda", device=device)
+    params = model.init_params(seed=0)
+    log(f"{label}: {cfg.name} {n_params(params) / 1e9:.3f} B parameters, "
+        f"{sum(t.numel() * t.element_size() for t in _leaves(params)) / 1e9:.2f}"
+        f" GB ({cfg.param_dtype}), {cfg.n_layers} layers, B={spec['batch']}, "
+        f"max_seq {spec['max_seq']}")
+    base, first = m_state(cfg, model, params, spec, device)
+    launches_at = launches_at or M_LAUNCHES
+    n_tok = max(T * n for T, n in launches_at.items())
+    tokens = m_tokens(model, params, base, first, n_tok)
+    log(f"{label}: state at length {int(base['length'])}; the sequential "
+        f"path's greedy tokens {tokens.shape[1]} a sequence, first "
+        f"{tokens[0, :8].tolist()}")
+    out = {T: pp_run(card, f"{label} T={T}", cfg, model, params, base,
+                     tokens, T, n, mesh, device,
+                     M_FP32_REL_TOL if exact else M_BF16_REL_TOL, exact,
+                     graphs)
+           for T, n in launches_at.items()}
+    del params, base
+    free()
+    return out
+
+
+def moe_smap_check(card: str, mesh, device: torch.device) -> None:
+    """M3: ``moe_sorted_smap`` under the (1, 1) mesh against
+    ``moe_sorted``: one MoE block of qwen2-moe-a2.7b at full width (one
+    layer's weights, seeded) on a seeded bf16 input.  At tp = 1 the body
+    is the same ops and a one-rank all-reduce leaves its input as it is,
+    so the outputs are bit-equal."""
+    cfg = ARCHS[M_MOE]
+    dtype = getattr(torch, cfg.param_dtype)
+    p = layer_params(init_from_specs(moe_specs(cfg, 1), dtype, device, 0), 0)
+    g = torch.Generator(device=device).manual_seed(1)
+    x = torch.randn(M_MOE_SHAPE + (cfg.d_model,), generator=g,
+                    device=device).to(dtype)
+    y_ref, aux_ref = moe_sorted(p, cfg, x)
+    set_mesh(mesh, ("data",))
+    try:
+        y, aux = moe_sorted_smap(p, cfg, x)
+    finally:
+        set_mesh(None, ())
+    err = max_err(y, y_ref)
+    equal = torch.equal(y, y_ref) and torch.equal(aux, aux_ref)
+    log(f"{card} | M3 moe_sorted_smap {cfg.name} x {tuple(x.shape)} "
+        f"{cfg.param_dtype} on the (1, 1) mesh against moe_sorted: "
+        f"{'bit-equal' if equal else 'NOT bit-equal'}, max|err| {err:.3e}")
+    if not equal:
+        raise AssertionError(f"M3: moe_sorted_smap differs from moe_sorted "
+                             f"at tp = 1 (max|err| {err:.3e})")
+
+
+def rules_check(mesh) -> None:
+    """M4: on the (1, 1) mesh every rule of every architecture resolves to
+    full replication (every dim in one block: ZeRO-1 may still name the
+    data axis, of size 1, as the reference's rules do); the production
+    layout's dropped axes are logged."""
+    meta = torch.device("meta")
+    for arch, cfg in ARCHS.items():
+        rules = ShardingRules(mesh, resolve(cfg, 1))
+        specs = [rules.param_specs(model_param_specs(rules.cfg)),
+                 rules.opt_specs(model_param_specs(rules.cfg))]
+        if any(mesh_axis_size(mesh, a) != 1 for tree in specs
+               for s in _spec_leaves(tree) for a in s) or rules.dropped:
+            raise AssertionError(f"M4: {arch} does not replicate on the "
+                                 f"(1, 1) mesh: {rules.dropped[:4]}")
+    layout = MeshLayout.production()
+    for arch in M_RULES_LOGGED:
+        cfg = resolve(ARCHS[arch], layout.shape["model"])
+        rules = ShardingRules(layout, cfg)
+        model = get_model(cfg, device="cpu")
+        model.device = meta                    # shapes only
+        shape = SHAPES["decode_32k"]
+        rules.param_specs(model_param_specs(cfg))
+        rules.opt_specs(model_param_specs(cfg))
+        rules.state_specs(model.init_decode_state(shape.global_batch,
+                                                  shape.seq_len))
+        log(f"M4 ShardingRules {arch} on {layout.shape}: "
+            f"{len(rules.dropped)} axes dropped (params, ZeRO-1 opt state, "
+            f"decode_32k state), first {rules.dropped[:2]}")
+    log(f"M4: every rule of {len(ARCHS)} architectures replicates on the "
+        f"(1, 1) mesh")
+
+
+def _spec_leaves(tree) -> List[Any]:
+    if isinstance(tree, dict):
+        return [s for v in tree.values() for s in _spec_leaves(v)]
+    return [tree]
+
+
+def mesh_path(card: str, device: torch.device
+              ) -> Dict[str, Dict[str, Dict[str, int]]]:
+    """Phase M: M0 a one-rank process group (NCCL on the card, gloo on the
+    CPU) over a FileStore in a temp dir and its (1, 1) mesh, one eager
+    collective on each mesh group before any capture; M1 and M2 the PP
+    launch against the sequential decode (bf16), M1's fp32 copy on
+    ``M_FP32``'s layers; M3 the shard_map MoE; M4 the rules.  The group
+    is destroyed at the end.  Returns each PP path's kernel launches by
+    T."""
+    t0 = time.perf_counter()
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    launched: Dict[str, Dict[str, Dict[str, int]]] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh(1, 1, device=device.type)
+            for axis in mesh.mesh_dim_names:
+                one = torch.ones(1, device=device)
+                dist.all_reduce(one, group=mesh.get_group(axis))
+                if one.item() != 1.0:
+                    raise AssertionError(f"M0: all_reduce on {axis}: {one}")
+            version = (torch.cuda.nccl.version() if backend == "nccl"
+                       else None)
+            log(f"phase M0: {backend} process group of 1 rank, mesh "
+                f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}, an eager "
+                f"all_reduce on each axis' group; NCCL {version}")
+            for arch, spec in M_PATHS.items():
+                label = f"M{len(launched) + 1} {arch} pp"
+                log(f"phase {label.split()[0]}: {arch} PPDecoder against "
+                    f"the sequential decode_step")
+                runs = pp_path(card, arch, spec, mesh, device, label)
+                launched[label] = {f"T={T} {M_LAUNCHES[T]} launches":
+                                   r["counts"] for T, r in runs.items()}
+            label = f"M1 {M_FP32['arch']} pp fp32"
+            log(f"phase M1: {M_FP32['arch']} fp32 on {M_FP32['n_layers']} "
+                f"layers")
+            pp_path(card, M_FP32["arch"],
+                    {**M_PATHS[M_FP32["arch"]],
+                     "n_layers": M_FP32["n_layers"]}, mesh, device, label,
+                    dtype="float32", launches_at=M_FP32["launches"],
+                    graphs=False, cut="the fp32 copy")
+            log("phase M3: the shard_map MoE")
+            moe_smap_check(card, mesh, device)
+            log("phase M4: ShardingRules")
+            rules_check(mesh)
+        finally:
+            dist.destroy_process_group()
+    log(f"{card} | phase M: {time.perf_counter() - t0:.1f} s")
+    return launched
+
+
 # ---------------------------------------------------------------- kernels
 def roofline(cost: KernelCost) -> Dict[str, Any]:
     """Bound of bf16 work on one H100 SXM (NVIDIA's published peaks): the
@@ -3842,6 +4323,9 @@ def main() -> int:
     counts.update(w_counts)
     log(f"{card} | phase W: {time.perf_counter() - t0:.1f} s")
 
+    log("phase M: the mesh, PPDecoder and the shard_map MoE")
+    m_counts = mesh_path(card, device)
+
     log("kernels at their paths' shapes")
     kernels = [rms_entry(device), flash_entry(device), ssd_entry(device)]
     kernels[1]["long_s"] = flash_long(card, device)
@@ -3866,6 +4350,13 @@ def main() -> int:
                     f"prefill + {W_DECODE} decode replays":
                         r["counts"][e["name"]]}
                 e["launches"] += r["counts"][e["name"]]
+        # phase M's PP launches, each run's counted launches
+        for label, by_T in m_counts.items():
+            pp = {run: c[e["name"]] for run, c in by_T.items()
+                  if c.get(e["name"], 0)}
+            if pp:
+                e["launches_by_path"][label] = pp
+                e["launches"] += sum(pp.values())
         for arch, c in c_counts.items():
             if c.get(e["name"], 0):
                 e["launches_by_path"][f"{arch} continuous"] = {

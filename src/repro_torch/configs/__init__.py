@@ -3,7 +3,8 @@
 All ten of the reference's architectures are registered: dense, MoE,
 Mamba2 (ssm), hybrid, whisper (audio) and llava (vlm); the serving
 geometry (``ServeShape``, ``SERVE_SHAPES``, ``kv_geometry``) and the
-assigned input shapes come from ``shapes``.
+assigned input shapes come from ``shapes``; ``resolve`` pads a config to a
+tensor-parallel axis.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Dict
 from . import (deepseek_7b, gemma_2b, grok_1_314b, jamba_v01_52b,
                llama3_405b, llava_next_34b, mamba2_780m, qwen2_moe_a2_7b,
                qwen3_8b, whisper_medium)
-from .base import ModelConfig
+from .base import ModelConfig, resolve
 from .shapes import (SERVE_SHAPES, SHAPES, ServeShape, ShapeConfig,
                      applicable, kv_geometry, skip_reason)
 
@@ -44,4 +45,4 @@ SMOKE_ARCHS: Dict[str, ModelConfig] = {
 
 __all__ = ["ARCHS", "SMOKE_ARCHS", "ModelConfig", "SHAPES", "ShapeConfig",
            "SERVE_SHAPES", "ServeShape", "kv_geometry", "applicable",
-           "skip_reason"]
+           "skip_reason", "resolve"]

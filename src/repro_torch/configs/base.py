@@ -3,14 +3,19 @@
 Every architecture gets one file in this package with its exact published
 configuration (``CONFIG``) and a reduced smoke variant (``SMOKE``) derived
 from the same dataclass.  The fields are the reference's, so a config can be
-handed to either package.
+handed to either package.  :func:`resolve` pads the vocabulary and the heads
+to a tensor-parallel axis, as the reference's does.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "pad_to_multiple", "resolve"]
+
+
+def pad_to_multiple(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,3 +179,15 @@ class ModelConfig:
         total += emb if self.tie_embeddings else 2 * emb
         active += emb if self.tie_embeddings else 2 * emb
         return total, active
+
+
+def resolve(cfg: ModelConfig, model_axis: int = 16) -> ModelConfig:
+    """Apply divisibility padding for a given tensor-parallel axis size."""
+    kw = {}
+    if cfg.vocab_size % model_axis:
+        kw["pad_vocab_to"] = pad_to_multiple(cfg.vocab_size, model_axis)
+    if cfg.n_heads % model_axis and cfg.family not in ("ssm",):
+        kw["pad_heads_to"] = pad_to_multiple(cfg.n_heads, model_axis)
+    if not kw:
+        return cfg
+    return dataclasses.replace(cfg, **kw)

@@ -1,15 +1,20 @@
 """Mixture-of-Experts: top-k router + shared experts.
 
-A port of ``repro.models.moe``, with its two dispatch implementations:
+A port of ``repro.models.moe``, with its three dispatch implementations:
 
 * ``dense`` (:func:`moe_dense`): every expert runs on every token, combined
   with the router weights; the oracle.
 * ``sorted`` (:func:`moe_sorted`): capacity-bounded sort-based dispatch per
   batch row: the (token, choice) slots are sorted by expert, each expert
   takes a static capacity ``C = min(S, max(1, int(S*k*cf/E)))`` of them, and
-  the outputs are combined back with the router weights.  The reference's
-  ``"sorted_smap"`` runs this same function when no mesh is set, which is
-  always the case on one device.
+  the outputs are combined back with the router weights.
+* ``sorted_smap`` (:func:`moe_sorted_smap`): the same dispatch under
+  ``shard_map`` with expert-internal tensor parallelism over ``model``:
+  each rank runs its block of the batch (over the data-parallel axes)
+  through its slice of every expert's FFN, and one ``psum`` over ``model``
+  follows the combine.  Without a mesh (``distributed.set_mesh``), or
+  without a ``model`` axis, it runs :func:`moe_sorted`, as the reference
+  does.
 
 Every shape is static and nothing reads back to the host, so a CUDA graph
 captures the sorted path: the per-expert counts are a comparison summed over
@@ -33,9 +38,11 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..distributed.context import P, dp_axes_active, get_mesh, psum, shard_map
 from .layers import Params, Spec, silu
 
-__all__ = ["moe_specs", "moe_block", "moe_dense", "moe_sorted", "capacity"]
+__all__ = ["moe_specs", "moe_block", "moe_dense", "moe_sorted",
+           "moe_sorted_smap", "capacity"]
 
 
 def moe_specs(cfg: ModelConfig, n_layers: int) -> Params:
@@ -163,10 +170,49 @@ def moe_sorted(p: Params, cfg: ModelConfig, x: torch.Tensor
     return y, aux
 
 
+def moe_sorted_smap(p: Params, cfg: ModelConfig, x: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """shard_map MoE: expert-internal TP with the ``psum`` AFTER the combine.
+
+    ``w_gate``/``w_up`` are sharded on their last dim over ``model``,
+    ``w_down`` on its middle dim, the shared experts likewise; the batch
+    (and the router's weights and choices, computed whole) over the active
+    data-parallel axes.  Each rank's partial output of its FFN slices is
+    summed over ``model`` once, on the combined [B, S, D].  Falls back to
+    :func:`moe_sorted` when no mesh context is active."""
+    mesh = get_mesh()
+    if mesh is None or "model" not in (
+            getattr(mesh, "mesh_dim_names", None) or ()):
+        return moe_sorted(p, cfg, x)
+    dp = dp_axes_active() or ("data",)
+    dpa = dp if len(dp) > 1 else dp[0]
+    w, ids, aux = _router(p, cfg, x)
+    shared = p.get("shared") if cfg.n_shared_experts else None
+
+    def body(xb, wb, idb, wg, wu, wd, sh):
+        y = _sorted_core(cfg, xb, wb, idb, wg, wu, wd)
+        if sh is not None:
+            y = y + _shared_ffn(sh, xb, cfg.act)
+        return psum(y, "model")
+
+    rows = P(dpa, None, None)
+    cols, mid = P(None, None, "model"), P(None, "model", None)
+    shared_specs = {"w_gate": cols, "w_up": cols, "w_down": mid}
+    y = shard_map(body, mesh,
+                  in_specs=(rows, rows, rows, cols, cols, mid,
+                            shared_specs if shared is not None else P()),
+                  out_specs=rows)(x, w, ids, p["w_gate"], p["w_up"],
+                                  p["w_down"], shared)
+    return y, aux
+
+
 def moe_block(p: Params, cfg: ModelConfig, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``cfg.moe_impl``: ``"dense"`` runs :func:`moe_dense`; ``"sorted"``
-    and ``"sorted_smap"`` run :func:`moe_sorted`."""
+    """``cfg.moe_impl``: ``"dense"`` runs :func:`moe_dense`,
+    ``"sorted_smap"`` :func:`moe_sorted_smap`, anything else
+    :func:`moe_sorted`."""
     if cfg.moe_impl == "dense":
         return moe_dense(p, cfg, x)
+    if cfg.moe_impl == "sorted_smap":
+        return moe_sorted_smap(p, cfg, x)
     return moe_sorted(p, cfg, x)

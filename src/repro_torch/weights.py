@@ -2,11 +2,14 @@
 
 ``params_from_jax`` takes the reference's param pytree (``init_params`` of
 ``repro.models.transformer.TransformerLM`` or ``repro.models.ssm.MambaLM``,
-per-layer leaves stacked on a leading L axis) as numpy arrays — bf16 leaves
-as ``ml_dtypes`` arrays or as float32 — and returns the port's param tree on
-``device``.  The structure and every leaf's shape are checked against the
-port's own :func:`~repro_torch.models.param_specs` for the config's family,
-and every leaf takes its spec's type.
+per-layer leaves stacked on a leading L axis, or of
+``repro.distributed.pp_decode.PPDecoder``, per-layer leaves stacked as
+[n_stages, layers_per_stage, ...] beside a bool ``valid`` leaf) as numpy
+arrays — bf16 leaves as ``ml_dtypes`` arrays or as float32 — and returns the
+port's param tree on ``device``.  The structure and every leaf's shape are
+checked against the port's own :func:`~repro_torch.models.param_specs` for
+the config's family (or :func:`~repro_torch.distributed.pp_decode.
+pp_param_specs` for a PP tree), and every leaf takes its spec's type.
 
 ``opt_state_from_jax`` and ``ef_state_from_jax`` carry over the
 reference's optimizer state (``repro.optim.adamw.AdamWState``: step, fp32
@@ -37,11 +40,16 @@ def params_from_jax(np_tree: Any, cfg: ModelConfig,
     """Numpy param tree -> torch param tree.
 
     A leaf whose spec fixes a type (Mamba's fp32 ``A_log``, ``D`` and
-    ``dt_bias``) keeps it; every other leaf takes ``dtype`` (default: the
-    config's).
+    ``dt_bias``; a PP tree's bool ``valid``) keeps it; every other leaf
+    takes ``dtype`` (default: the config's).
     """
     dev = resolve_device(device)
     dtype = dtype_of(cfg) if dtype is None else dtype
+    if isinstance(np_tree, dict) and "valid" in np_tree:
+        from .distributed.pp_decode import pp_param_specs
+        specs = pp_param_specs(cfg, *np.asarray(np_tree["valid"]).shape)
+    else:
+        specs = param_specs(cfg)
 
     def convert(spec: Spec, leaf: Any) -> torch.Tensor:
         a = np.asarray(leaf)
@@ -51,7 +59,7 @@ def params_from_jax(np_tree: Any, cfg: ModelConfig,
         return torch.from_numpy(a.astype(np.float32)).to(
             device=dev, dtype=spec.dtype or dtype)
 
-    return map_params(convert, param_specs(cfg), np_tree)
+    return map_params(convert, specs, np_tree)
 
 
 def opt_state_from_jax(step: Any, master: Any, m: Any, v: Any,
