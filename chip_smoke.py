@@ -93,9 +93,8 @@ mamba2-780m (SSD scan), both at full published width (and phase Z's, below):
    (``impl="ref"``) on the same weights: bf16 prefill logits; last in the
    path, once its bf16 weights are released, the fp32 variant's prefill
    logits and 8 greedy tokens.  The routes differ in the prefill's kernel
-   (flash attention vs dense softmax; SSD kernel vs plain chunked scan);
-   every norm goes through the RMSNorm kernel on both, which phase 3 holds
-   against its plain version.  An MoE router's expert choices are held to
+   (flash attention vs dense softmax; SSD kernel vs plain chunked scan)
+   and in every norm (the RMSNorm kernel vs plain ops).  An MoE router's expert choices are held to
    the kernel route's (a flip at a near-tie moves a token's output whole),
    and the choices a route would have made otherwise are counted;
 7. time both routes: the model's eager calls (prefill, decode) and the
@@ -245,6 +244,10 @@ Z2. jamba-v0.1-52b at full width on one period (8 of 32 layers: attention
     on ``DenseKV``;
 Z3. grok-1-314b at full width on 2 of 64 layers (gelu experts, top-2 of 8,
     GQA 48/8): phase 6;
+Z4. the hybrid's decode (jamba's smoke layout at d 256, 4 heads of 64,
+    fp32) captured once as a CUDA Graph and replayed 8 times, each replay's
+    logits and state equal to an eager ``decode_step`` from the same state
+    within 1e-5 (a capture of it was once invalidated);
 
 then phase W, the audio and vlm families at full width (each model
 released before the next), through ``runtime/steps.py``'s
@@ -296,6 +299,28 @@ M3. ``moe_sorted_smap`` under the mesh on one qwen2-moe-a2.7b MoE block
 M4. every architecture's ``ShardingRules`` replicating on the (1, 1)
     mesh; the production layout's dropped axes; the phase's seconds;
 
+then phase R, the dry-run (``launch/dryrun.py``) on a fake process group
+of 256 ranks (the ``fake`` backend, rank 0, a 16 x 16 ``DeviceMesh``):
+
+R1. the cells of ``R_CELLS`` on ``meta`` (one arch per family at
+    decode_32k and long_500k, whisper-medium's train_4k and prefill_32k,
+    mamba2-780m's train_4k, jamba-v0.1-52b's prefill_32k) and llama3-405b's
+    PP decode cell, the cells in ``R_WORKERS`` spawned processes, one line
+    a cell: its status, the three roofline terms, its collective link
+    bytes a device, the ops it ran on gathered operands (against torch
+    2.13's, ``R_REPLICATED``: a torch without 2.13's strided view sharding
+    may gather views besides, which the line lists; any other difference
+    fails), its recording's seconds; the sweep's seconds;
+R2. gemma-2b x decode_32k's rank-0 program on the card (random local
+    shards): its op-level stream equal to the meta record's entry by entry
+    (opcode, FLOPs, operand and result bytes), no kernel of the port
+    launched (the plain route), the graph's nodes, its pool's bytes and
+    its replay median beside the roofline's max(compute, memory);
+R3. one hillclimb on R2's cell on meta (``--set attn_chunk=2048``, a
+    ``--kernel-credit`` of the attention interior): the override reaches
+    the config, the credit moves memory_s by exactly the replaced bytes;
+R4. R1-R3's records through ``report_md``, the markdown printed;
+
 every profiler window of the script (phase 5, C1, S2, K1-K2, T3 and the
 device times) matches torch.profiler's records to their launches by
 correlation id: a graph launch to its decoded nodes, an eager kernel
@@ -321,14 +346,17 @@ script exits non-zero before printing any result.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import ctypes
 import dataclasses
 import gc
 import json
 import math
+import multiprocessing
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -375,6 +403,7 @@ from repro_torch.kernels.rms_norm.ops import rms_norm, rms_norm_cost  # noqa: E4
 from repro_torch.kernels.rms_norm.ref import rms_norm_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_cost  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
+from repro_torch.launch import dryrun, hillclimb, report_md  # noqa: E402
 from repro_torch.launch.mesh import MeshLayout, make_mesh  # noqa: E402
 from repro_torch.models import get_model  # noqa: E402
 from repro_torch.models import param_specs as model_param_specs  # noqa: E402
@@ -3434,6 +3463,12 @@ def zoo_path(card: str, device: torch.device
     for path, then in ((QWEN_MOE, z1), (JAMBA, z2)):
         log(f"phase Z: {path.arch}")
         counts[path.arch] = drive_path(path, card, device, then)
+    log(f"phase Z4: the hybrid's decode captured, {Z_HYBRID['replays']} "
+        f"replays against eager decode steps")
+    worst = hybrid_replays(device)
+    log(f"phase Z4: {Z_HYBRID['replays']} replays equal the eager steps "
+        f"within {Z_HYBRID['tol']}: logits max|diff| {worst['logits']:.3e}, "
+        f"state {worst['state']:.3e}")
     log(f"phase Z3: {GROK.arch}, kernel route against the plain route")
     cfg, params = init_path(GROK, device)
     compare_bf16(GROK, cfg, params, device)
@@ -3441,6 +3476,68 @@ def zoo_path(card: str, device: torch.device
     free()
     compare_fp32(GROK, cfg, device)
     return counts, engines
+
+
+# phase Z4: the hybrid's decode captured once and replayed, each replay
+# against an eager run of the same step (a capture was invalidated once at
+# smoke size, at the first Mamba2 decode einsum): jamba's smoke layout at d
+# 256, 4 heads of 64 (hd 64, as the flash kernel takes), fp32
+Z_HYBRID = {"d_model": 256, "n_heads": 4, "head_dim": 64, "batch": 4,
+            "max_seq": 64, "replays": 8, "tol": 1e-5}
+
+
+def hybrid_replays(device: torch.device, replays: int = Z_HYBRID["replays"]
+                   ) -> Dict[str, float]:
+    """``HybridLM.decode_step`` as one ``CapturedStep``, replayed
+    ``replays`` times on fresh tokens; each replay's logits and every
+    state leaf held to an eager ``decode_step`` from the same state (fp32,
+    ``Z_HYBRID["tol"]``).  Returns the largest differences."""
+    from repro_torch.models import HybridLM
+    z = Z_HYBRID
+    cfg = dataclasses.replace(SMOKE_ARCHS["jamba-v0.1-52b"],
+                              d_model=z["d_model"], n_heads=z["n_heads"],
+                              head_dim=z["head_dim"], param_dtype="float32")
+    lm = HybridLM(cfg, device=device)
+    params = lm.init_params(0)
+    state = lm.init_decode_state(z["batch"], z["max_seq"])
+    g = torch.Generator(device=device).manual_seed(2)
+
+    def draw() -> torch.Tensor:
+        return torch.randint(0, cfg.vocab_size, (z["batch"], 1), generator=g,
+                             device=device, dtype=torch.int32)
+
+    tokens = draw()
+    step = CapturedStep(lambda: lm.decode_step(params, state, tokens), device)
+    step.capture()                      # its warm-up decodes one token
+    eager = {k: (v.clone() if torch.is_tensor(v)
+                 else {n: t.clone() for n, t in v.items()})
+             for k, v in state.items()}
+    worst = {"logits": 0.0, "state": 0.0}
+    for i in range(replays):
+        tokens.copy_(draw())
+        _, got = step()
+        _, want = lm.decode_step(params, eager, tokens.clone())
+        torch.testing.assert_close(got, want, rtol=z["tol"], atol=z["tol"],
+                                   msg=lambda m: f"replay {i} logits: {m}")
+        worst["logits"] = max(worst["logits"], max_err(got, want))
+        for name, a, b in _state_pairs(state, eager):
+            torch.testing.assert_close(a, b, rtol=z["tol"], atol=z["tol"],
+                                       msg=lambda m: f"replay {i} {name}: {m}")
+            worst["state"] = max(worst["state"], max_err(a.float(), b.float()))
+    if int(state["length"]) != int(eager["length"]):
+        raise AssertionError(f"length {int(state['length'])} against "
+                             f"{int(eager['length'])}")
+    return worst
+
+
+def _state_pairs(a: Dict[str, Any], b: Dict[str, Any]
+                 ) -> Iterator[Tuple[str, torch.Tensor, torch.Tensor]]:
+    for k, v in a.items():
+        if isinstance(v, dict):
+            for n, t in v.items():
+                yield f"{k}/{n}", t, b[k][n]
+        else:
+            yield k, v, b[k]
 
 
 # ---------------------------------------------------------------- phase W
@@ -4092,6 +4189,219 @@ def mesh_path(card: str, device: torch.device
     return launched
 
 
+# ---------------------------------------------------------------- phase R
+# phase R: the dry-run (``launch/dryrun.py``) on the fake 256-rank mesh.  R1
+# records the cells of ``R_CELLS`` and the PP cell on meta; R2 runs one
+# cell's rank-0 program on the card; R3 one hillclimb; R4 the markdown
+# report of R1-R3's records.  The whole sweep (40 cells a mesh) takes hours
+# on the host: a prefill_32k cell of an attention arch records about a
+# million ops, each through a shape function in Python.  So R1 takes one
+# arch per family at decode_32k and long_500k, the train_4k and prefill_32k
+# cells of whisper-medium (attention) and mamba2-780m's train_4k and
+# jamba-v0.1-52b's prefill_32k (the causal conv and the SSD scan);
+# ``python -m repro_torch.launch.dryrun --all --mesh both`` runs all 80
+R_FAMILIES = ("gemma-2b", "qwen2-moe-a2.7b", "mamba2-780m", "jamba-v0.1-52b",
+              "whisper-medium", "llava-next-34b")
+R_CELLS = ([(arch, shape) for arch in R_FAMILIES
+            for shape in ("decode_32k", "long_500k")]
+           + [("whisper-medium", "train_4k"), ("whisper-medium", "prefill_32k"),
+              ("mamba2-780m", "train_4k"), ("jamba-v0.1-52b", "prefill_32k")])
+#: the ops each R1 cell runs on gathered operands under torch 2.13 (its
+#: record's ``replicated_ops``, ``python -m repro_torch.launch.dryrun`` on
+#: a CPU host); a cell absent gathers nothing.  A card whose torch gathers
+#: other ops, or fewer, fails R1; more views it lists (``r1_views``)
+R_REPLICATED = {
+    ("qwen2-moe-a2.7b", "decode_32k"): {"aten.scatter_.src": 72},
+    ("jamba-v0.1-52b", "decode_32k"): {"aten.scatter_.src": 48,
+                                       "aten.view.default": 4},
+    ("jamba-v0.1-52b", "long_500k"): {"aten.scatter_.src": 48,
+                                      "aten.view.default": 4},
+    ("llava-next-34b", "decode_32k"): {"aten.view.default": 60},
+    ("jamba-v0.1-52b", "prefill_32k"): {"aten.scatter_.src": 48},
+}
+#: the ops a torch without 2.13's strided view sharding gathers besides
+#: (the card's 2.11: ``r1_views``)
+R_VIEW_OPS = ("aten.view.default", "aten._unsafe_view.default")
+#: R1's recording seconds of a cell on the H100's host (torch 2.11), to
+#: start the longest first; a cell absent takes a few seconds
+R_COST = collections.defaultdict(lambda: 5.0, {
+    ("jamba-v0.1-52b", "prefill_32k"): 85.5,
+    ("mamba2-780m", "train_4k"): 48.0,
+    ("whisper-medium", "prefill_32k"): 18.1,
+    ("whisper-medium", "train_4k"): 9.6})
+R_WORKERS = 4
+R_PP = ("llama3-405b", "decode_32k")
+R_EXEC = ("gemma-2b", "decode_32k")
+R_HILLCLIMB = ["--arch", "gemma-2b", "--shape", "decode_32k", "--label",
+               "R3", "--set", "attn_chunk=2048",
+               "--kernel-credit", "attention_interior:1048576"]
+R_REPLAYS = 20
+
+
+def r_line(card: str, rec: Dict[str, Any], seconds: float,
+           views: Optional[Dict[str, int]] = None) -> str:
+    tag = f"{rec['arch']} x {rec['shape']} x {rec['mesh']}"
+    if rec["status"] != "ok":
+        return f"{card} | R1 {tag}: {rec['status']} ({rec.get('reason')})"
+    r = rec["roofline"]
+    pp = " pp" if rec.get("pp") else ""
+    more = (f" (views gathered where torch 2.13 shards them strided: "
+            f"{views})" if views else "")
+    return (f"{card} | R1 {tag}{pp}: ok, compute {r['compute_s']*1e3:.3f} "
+            f"ms, memory {r['memory_s']*1e3:.3f} ms, collective "
+            f"{r['collective_s']*1e3:.3f} ms ({r['bottleneck']}), link "
+            f"{rec['stream']['collective_link_bytes']} B/device, replicated "
+            f"{rec['replicated_ops']}{more}, {seconds:.2f} s")
+
+
+def r1_views(arch: str, shape: str, rec: Dict[str, Any]) -> Dict[str, int]:
+    """The views a cell's record gathers beyond torch 2.13's
+    (``R_REPLICATED``): a torch without 2.13's strided view sharding (a dim
+    flattened from two split dims) gathers those views.  Any other
+    difference from 2.13 fails R1."""
+    if rec["status"] != "ok":
+        return {}
+    want = R_REPLICATED.get((arch, shape), {})
+    got = rec["replicated_ops"]
+    more = {op: got.get(op, 0) - want.get(op, 0)
+            for op in set(got) | set(want) if got.get(op, 0) != want.get(op, 0)}
+    if any(op not in R_VIEW_OPS or n < 0 for op, n in more.items()):
+        raise AssertionError(f"R1 {arch} x {shape}: gathered {got} where "
+                             f"torch 2.13 gathers {want}")
+    return more
+
+
+def op_entries(cs) -> List[Tuple[str, int, int, int]]:
+    return [(e.opcode, e.flops, e.operand_bytes, e.result_bytes)
+            for e in cs.stream.entries]
+
+
+def dryrun_path(card: str, device: torch.device) -> List[Dict[str, Any]]:
+    """Phase R: R1-R4 (see ``R_CELLS``); on the CPU R2 runs on meta.
+    Returns R1's and R2's records."""
+    t0 = time.perf_counter()
+    recs: List[Dict[str, Any]] = []
+    try:
+        # a cell's recording is host-bound Python: the cells run in
+        # R_WORKERS spawned processes (each its own fake group), the longest
+        # first; a thread for one worker (the CPU rehearsal's patches hold)
+        pool = (concurrent.futures.ProcessPoolExecutor(
+                    R_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+                if R_WORKERS > 1 else
+                concurrent.futures.ThreadPoolExecutor(1))
+        with pool:
+            futs = {cell: pool.submit(dryrun.run_cell, *cell, False)
+                    for cell in sorted(R_CELLS, key=lambda c: R_COST[c],
+                                       reverse=True)}
+            for arch, shape in R_CELLS:
+                rec = futs[arch, shape].result()
+                log(r_line(card, rec, rec.get("wall_s", 0.0),
+                           r1_views(arch, shape, rec)))
+                recs.append(rec)
+        t = time.perf_counter()
+        rec = dryrun.run_pp_cell(*R_PP, False)
+        if not (rec["pp"] and rec["stream"]["collective_counts"].get(
+                "collective-permute")):
+            raise AssertionError(f"R1 pp: no collective-permute: "
+                                 f"{rec['stream']['collective_counts']}")
+        log(r_line(card, rec, time.perf_counter() - t))
+        recs.append(rec)
+        log(f"{card} | R1: {len(recs)} cells in "
+            f"{time.perf_counter() - t0:.1f} s")
+        recs.append(r2_executed(card, device))
+        hc = r3_hillclimb(card)
+    finally:
+        dryrun.release_fake_mesh()
+    log("phase R4: report_md of R1-R3's records")
+    print(report_md.render(recs, [hc]))
+    log(f"{card} | phase R: {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
+def r2_executed(card: str, device: torch.device) -> Dict[str, Any]:
+    """R2: ``R_EXEC``'s rank-0 program on the card, its op-level stream
+    equal to the meta record's entry by entry; its graph's nodes, temp
+    bytes and replay time beside the roofline's bound.  The plain route
+    launches none of the port's kernels."""
+    exec_dev = "cuda" if device.type == "cuda" else "meta"
+    meta = dryrun.run_cell(*R_EXEC, False, keep_artifacts=True)
+    reset_launches()
+    rec = dryrun.run_cell(*R_EXEC, False, keep_artifacts=True,
+                          device=exec_dev)
+    if sum(launches.values()):
+        raise AssertionError(f"R2: the plain route launched {dict(launches)}")
+    cs, cm = rec.pop("_captured"), meta.pop("_captured")
+    got, want = op_entries(cs), op_entries(cm)
+    if got != want:
+        first = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                     min(len(got), len(want)))
+        raise AssertionError(f"R2: {len(got)} op entries on {exec_dev}, "
+                             f"{len(want)} on meta; first difference at "
+                             f"{first}: {got[first:first + 1]} against "
+                             f"{want[first:first + 1]}")
+    r = rec["roofline"]
+    bound_ms = max(r["compute_s"], r["memory_s"]) * 1e3
+    tag = f"{R_EXEC[0]} x {R_EXEC[1]} x single"
+    log(f"R2 {tag}: {len(got)} op entries equal the meta record's (opcode, "
+        f"FLOPs, operand and result bytes)")
+    if exec_dev != "cuda":
+        return rec
+    g = rec.get("graph_stream")
+    if g is None:
+        log(f"{card} | R2 {tag}: ran eagerly, no graph: "
+            f"{rec.get('graph_stream_reason')}")
+        ms = time_ms(cs.step, reps=R_REPLAYS)
+        nodes = None
+    else:
+        ms = statistics.median(replay_ms(cs.step, R_REPLAYS))
+        nodes = g["n_ops"]
+    log(f"{card} | R2 {tag} on the card: {nodes} graph nodes, temp "
+        f"{rec['memory'].get('temp_size_in_bytes')} B, replay median "
+        f"{ms:.5f} ms against max(compute, memory) {bound_ms:.5f} ms "
+        f"({bound_ms / ms:.1%} of it); collective {r['collective_s']*1e3:.5f}"
+        f" ms (the fake group moves nothing)")
+    rec["replay_ms"] = ms
+    return rec
+
+
+def replay_ms(fn: Callable[[], Any], reps: int) -> List[float]:
+    """Each of ``reps`` calls' device time (CUDA events), after 3 more."""
+    for _ in range(3):
+        fn()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def r3_hillclimb(card: str) -> Dict[str, Any]:
+    """R3: one hillclimb on a meta cell with a ``--set`` override and a
+    ``--kernel-credit``; the override reaches the config, the credit moves
+    memory_s by the replaced bytes."""
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = hillclimb.main(R_HILLCLIMB + ["--out", f"{tmp}/h.jsonl"])
+    if rec["overrides"] != {"attn_chunk": 2048}:
+        raise AssertionError(f"R3: overrides {rec['overrides']}")
+    tag, io = R_HILLCLIMB[-1].rsplit(":", 1)
+    credit = rec["kernel_credits"][tag]
+    moved = (rec["roofline_kernel_credited"]["memory_s"]
+             - rec["roofline"]["memory_s"])
+    want = (float(io) - credit["replaced_mem"]) / H100_SXM.hbm_bw
+    if not math.isclose(moved, want, rel_tol=1e-9, abs_tol=1e-15):
+        raise AssertionError(f"R3: memory_s moved {moved}, want {want}")
+    log(f"{card} | R3 hillclimb {rec['arch']} x {rec['shape']}: "
+        f"{tag} {credit['replaced_mem']:.0f} B -> {float(io):.0f} B, "
+        f"memory_s {rec['roofline']['memory_s']*1e3:.3f} -> "
+        f"{rec['roofline_kernel_credited']['memory_s']*1e3:.3f} ms")
+    return rec
+
+
 # ---------------------------------------------------------------- kernels
 def roofline(cost: KernelCost) -> Dict[str, Any]:
     """Bound of bf16 work on one H100 SXM (NVIDIA's published peaks): the
@@ -4325,6 +4635,10 @@ def main() -> int:
 
     log("phase M: the mesh, PPDecoder and the shard_map MoE")
     m_counts = mesh_path(card, device)
+
+    log("phase R: the dry-run on the fake 256-rank mesh, hillclimb, "
+        "report_md")
+    dryrun_path(card, device)
 
     log("kernels at their paths' shapes")
     kernels = [rms_entry(device), flash_entry(device), ssd_entry(device)]

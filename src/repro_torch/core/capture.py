@@ -14,8 +14,13 @@ sampled, never partial, with two decoded streams:
   aten ops and one entry per port kernel, with FLOPs and bytes, on any
   device;
 * ``graph_stream``, the graph itself decoded node by node
-  (``core.stream.decode_graph``) on the card; ``None`` on the CPU, where
-  nothing is captured.
+  (``core.stream.decode_graph``) on the card; ``None`` on the CPU and on
+  ``meta``, where nothing is captured.
+
+A step may take DTensors (``launch/dryrun.py``): the stream then holds
+what this rank runs, and the argument and output bytes are those of its
+local shards.  On ``meta`` nothing is allocated: the step is recorded in
+one direct run, and ``memory`` holds no temp bytes.
 
 ``cost`` holds the op-level stream's ``{"flops", "bytes accessed"}``, the
 counterpart of XLA's ``cost_analysis``; ``memory`` the argument, output and
@@ -101,8 +106,10 @@ class CapturedStream:
 
 
 def _nbytes(tree: Any) -> int:
-    """Bytes of the tensors in nested tuples, lists and dicts."""
+    """Bytes of the tensors in nested tuples, lists and dicts; of a
+    DTensor, its local shard's."""
     if isinstance(tree, torch.Tensor):
+        tree = getattr(tree, "_local_tensor", tree)
         return tree.numel() * tree.element_size()
     if isinstance(tree, dict):
         tree = list(tree.values())
@@ -179,11 +186,13 @@ class CommandStreamCapture:
         tensors it is given, which keep their addresses from replay to
         replay.  The step runs on the device of its first tensor argument
         (``device`` where given; the card where there is neither): on the
-        card it is recorded, captured and decoded, on the CPU recorded in
-        one direct run."""
+        card it is recorded, captured and decoded, on the CPU and on
+        ``meta`` recorded in one direct run."""
         kwargs = kwargs or {}
-        dev = resolve_device(device if device is not None
-                             else _first_device([list(args), kwargs]))
+        dev = (device if device is not None
+               else _first_device([list(args), kwargs]))
+        dev = (torch.device("meta") if torch.device(dev or "cuda").type
+               == "meta" else resolve_device(dev))
         step = CapturedStep(lambda: fn(*args, **kwargs), dev)
         t0 = time.perf_counter()
         with record_captures():

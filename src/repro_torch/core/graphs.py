@@ -196,7 +196,8 @@ class CapturedStep:
     def __call__(self) -> Any:
         if self.device.type != "cuda":
             if self.ops is None and _RECORDING.get():
-                self.out, self.ops, self.record_s = recorded_call(self.fn)
+                self.out, self.ops, self.record_s = recorded_call(
+                    self.fn, self.device)
                 return self.out
             return self.fn()
         self.capture()

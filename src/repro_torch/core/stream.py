@@ -19,7 +19,19 @@ TPU consumes.  On CUDA the submission unit is a captured CUDA Graph
   formulas, elementwise ops by result elements and reductions by operand
   elements, as the reference counts HLO), their Python call path and their
   engine.  The port's kernels are no aten ops; each reports one ``kernel``
-  entry with its cost (``kernels.recorded``).  Any device, the CPU included.
+  entry with its cost (``kernels.recorded``).  Any device, the CPU and
+  ``meta`` included.
+
+  On DTensors (``torch.distributed.tensor``) the recorder charges what one
+  rank runs: it lets DTensor's own dispatch handle a DTensor op and records
+  the local ops that come back from it, at the local shards' shapes, and
+  leaves out the ops DTensor runs to propagate shardings (on fake tensors,
+  or below ``_sharding_prop``).  Collectives, functional
+  (``_c10d_functional``) or not (``c10d``), are ``collective`` entries
+  under the reference's opcodes (``COLLECTIVE_OPS``), with ``_link_bytes``
+  at the size of the op's own group; a send and its receive are a
+  ``collective-permute-start`` / ``-done`` pair whose link bytes the send
+  carries.  ``wait_tensor`` and ``_wrap_tensor_autograd`` are free.
 
 :class:`CommandEntry`, :class:`CommandStream` (totals, engine and opcode
 counts, collective accounting), :func:`dtype_bytes`, ``COLLECTIVE_OPS`` and
@@ -399,8 +411,10 @@ def decode_graph(graph: Any, bodies: Sequence[int] = ()) -> CommandStream:
 
 
 # ---------------------------------------------------------------- op record
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CORE = os.path.dirname(os.path.abspath(__file__))
+# as the package was imported: a frame's file name carries the same prefix
+# (not normalised where the import path was not)
+_PKG = os.path.dirname(os.path.dirname(__file__))
+_CORE = os.path.dirname(__file__)
 _KERNELS_INIT = os.path.join(_PKG, "kernels", "__init__.py")
 # no device traffic: aliases, allocations, metadata, and a scalar read to
 # the host (a captured step holds none; a host-side constant's does not count)
@@ -428,6 +442,118 @@ _GATHERS = frozenset(("index", "_unsafe_index", "index_select", "gather",
 _SCATTERS = frozenset(("index_put", "_unsafe_index_put", "index_copy",
                        "index_add", "scatter", "scatter_add", "scatter_reduce",
                        "masked_scatter", "put", "slice_scatter", "select_scatter"))
+# collectives: (namespace, op) -> (opcode, the argument the op sends, the
+# argument it writes or None for its result)
+_COLLECTIVES: Dict[Tuple[str, str], Tuple[str, str, Optional[str]]] = {
+    ("_c10d_functional", "all_reduce"): ("all-reduce", "input", None),
+    ("_c10d_functional", "all_reduce_"): ("all-reduce", "input", "input"),
+    ("_c10d_functional", "all_reduce_coalesced"):
+        ("all-reduce", "inputs", None),
+    ("_c10d_functional", "all_gather_into_tensor"):
+        ("all-gather", "input", None),
+    ("_c10d_functional", "all_gather_into_tensor_out"):
+        ("all-gather", "input", "out"),
+    ("_c10d_functional", "reduce_scatter_tensor"):
+        ("reduce-scatter", "input", None),
+    ("_c10d_functional", "all_to_all_single"): ("all-to-all", "input", None),
+    ("_c10d_functional", "broadcast"): ("collective-broadcast", "input", None),
+    ("_c10d_functional", "broadcast_"):
+        ("collective-broadcast", "input", "input"),
+    ("c10d", "allreduce_"): ("all-reduce", "tensors", "tensors"),
+    ("c10d", "allgather_"): ("all-gather", "input_tensors", "output_tensors"),
+    ("c10d", "_allgather_base_"):
+        ("all-gather", "input_tensor", "output_tensor"),
+    ("c10d", "reduce_scatter_"):
+        ("reduce-scatter", "input_tensors", "output_tensors"),
+    ("c10d", "_reduce_scatter_base_"):
+        ("reduce-scatter", "input_tensor", "output_tensor"),
+    ("c10d", "alltoall_base_"): ("all-to-all", "input", "output"),
+    ("c10d", "alltoall_"): ("all-to-all", "input_tensors", "output_tensors"),
+    ("c10d", "broadcast_"): ("collective-broadcast", "tensors", "tensors"),
+    ("_dtensor", "shard_dim_alltoall"): ("all-to-all", "input", None),
+    ("c10d", "send"): ("collective-permute-start", "tensors", None),
+    ("c10d", "recv_"): ("collective-permute-done", None, "tensors"),
+}
+# no device work of its own: a wait on a collective, autograd's wrapper
+_FREE_COLLECTIVES = frozenset(("wait_tensor", "_wrap_tensor_autograd",
+                               "barrier", "monitored_barrier_"))
+# DTensor's sharding propagation runs ops below these modules
+_PROPAGATION_FILES = ("_sharding_prop.py", "_op_schema.py")
+
+
+def _group_size(arg: Any) -> int:
+    """The size of a collective's group: a ``c10d`` op's process group, or
+    a functional op's group name."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    if isinstance(arg, str):
+        return _resolve_process_group(arg).size()
+    if isinstance(arg, torch.ScriptObject):
+        return dist.ProcessGroup.unbox(arg).size()
+    return arg.size()
+
+
+def _meta_arg(a: Any) -> Any:
+    """A hashable stand-in for one argument of a meta op, or raises
+    ``TypeError``: a tensor's layout, or a plain value."""
+    if isinstance(a, torch.Tensor):
+        if type(a) is not torch.Tensor or a.device.type != "meta":
+            raise TypeError
+        return ("T", tuple(a.shape), a.stride(), a.dtype,
+                a.storage_offset())
+    if isinstance(a, (list, tuple)):
+        return (type(a).__name__,) + tuple(_meta_arg(v) for v in a)
+    if a is None or isinstance(a, (bool, int, float, str, torch.dtype,
+                                   torch.device, torch.layout,
+                                   torch.memory_format)):
+        return a
+    raise TypeError
+
+
+def _meta_key(func: Any, args: tuple, kwargs: dict) -> Any:
+    """The cache key of a functional op on meta tensors, else None."""
+    schema = func._schema
+    if func.is_view or schema.is_mutable or not args:
+        return None
+    try:
+        key = (func, _meta_arg(args),
+               tuple(sorted((k, _meta_arg(v)) for k, v in kwargs.items())))
+    except TypeError:
+        return None
+    if not any(isinstance(a, tuple) and a[:1] == ("T",) for a in key[1]):
+        return None
+    return key
+
+
+def _meta_layout(out: Any) -> Any:
+    """(shape, stride, dtype) of a fresh meta output, a list of them for a
+    tuple of tensors, or None."""
+    def one(t: Any) -> Any:
+        if not (isinstance(t, torch.Tensor) and type(t) is torch.Tensor
+                and t.device.type == "meta" and t.storage_offset() == 0):
+            raise TypeError
+        return (tuple(t.shape), t.stride(), t.dtype)
+    try:
+        if isinstance(out, tuple):
+            return [one(t) for t in out]
+        return one(out)
+    except TypeError:
+        return None
+
+
+def _meta_empty(layout: Any) -> torch.Tensor:
+    shape, stride, dtype = layout
+    return torch.empty_strided(shape, stride, dtype=dtype, device="meta")
+
+
+def _subclass(types: Any, module: str, name: str) -> bool:
+    """Whether one of ``types`` subclasses ``module.name``; False while the
+    module is not imported (no such tensor can exist)."""
+    mod = sys.modules.get(module)
+    cls = getattr(mod, name, None) if mod is not None else None
+    return cls is not None and any(issubclass(t, cls) for t in types)
+
+
 _ELEMENTWISE_OPS = frozenset((
     "add", "sub", "rsub", "mul", "div", "maximum", "minimum", "pow", "tanh",
     "exp", "log", "rsqrt", "sqrt", "neg", "abs", "floor", "ceil", "sign", "cos",
@@ -454,16 +580,29 @@ def _nbytes(ts: Sequence[torch.Tensor]) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def _call_path(top: Any) -> str:
+#: files whose frames stay out of op paths (``hide_frames``)
+_HIDDEN: set = set()
+
+
+def hide_frames(filename: str) -> None:
+    """Keep a module's frames out of the recorded op paths: the dry-run's
+    DTensor handlers, which stand between a model's function and its ops."""
+    _HIDDEN.add(filename)
+
+
+def _call_path(top: Any) -> Optional[str]:
     """The port's functions on the Python stack below the frame ``top``,
-    outermost first (the recorder's own frames left out)."""
+    outermost first (the recorder's own frames left out); None for an op
+    that DTensor's sharding propagation runs."""
     names = []
     f = sys._getframe(2)
     while f is not None and f is not top:
         fn = f.f_code.co_filename
         if (fn.startswith(_PKG) and not fn.startswith(_CORE)
-                and fn != _KERNELS_INIT):
+                and fn != _KERNELS_INIT and fn not in _HIDDEN):
             names.append(f.f_code.co_name)
+        elif fn.endswith(_PROPAGATION_FILES):
+            return None
         f = f.f_back
     return "/".join(reversed(names))
 
@@ -472,11 +611,14 @@ class _OpRecorder(TorchDispatchMode):
     """Records every aten op of a run, and one entry per kernel call;
     ``top`` is the frame that runs the recorded function."""
 
-    def __init__(self, top: Any) -> None:
+    def __init__(self, top: Any, host_free: bool = False) -> None:
         super().__init__()
         self.entries: List[CommandEntry] = []
         self._top = top
+        self._host_free = host_free    # host-only ops are no commands
         self._inside = 0          # > 0 inside a kernel wrapper
+        # (op, arguments) -> the outputs' layouts, for meta ops
+        self._meta_outs: Dict[Any, Any] = {}
 
     def _add(self, e: CommandEntry) -> None:
         e.index = len(self.entries)
@@ -506,6 +648,12 @@ class _OpRecorder(TorchDispatchMode):
         kwargs = kwargs or {}
         if self._inside:
             return func(*args, **kwargs)
+        # a DTensor op goes to DTensor's own dispatch, whose local ops (and
+        # collectives) come back here; a fake tensor is sharding propagation
+        if _subclass(types, "torch.distributed.tensor", "DTensor"):
+            return NotImplemented
+        if _subclass(types, "torch._subclasses.fake_tensor", "FakeTensor"):
+            return func(*args, **kwargs)
         # under inference_mode a composite op (matmul, einsum, linear)
         # reaches the mode whole: record what it decomposes into, as it
         # would outside inference_mode
@@ -515,15 +663,43 @@ class _OpRecorder(TorchDispatchMode):
                 out = func.decompose(*args, **kwargs)
             if out is not NotImplemented:
                 return out
-        out = func(*args, **kwargs)
+        out = self._meta_call(func, args, kwargs)
         self._record(func, args, kwargs, out)
         return out
+
+    def _meta_call(self, func, args, kwargs) -> Any:
+        """``func`` on its arguments.  A functional op on ``meta`` tensors
+        (no view, nothing written) returns fresh tensors of the shapes,
+        strides and types it returned before on the same arguments: its
+        shape function runs in Python, at a cost the dry-run's million ops
+        a cell would pay again and again."""
+        key = _meta_key(func, args, kwargs)
+        if key is None:
+            return func(*args, **kwargs)
+        known = self._meta_outs.get(key)
+        if known is None:
+            out = func(*args, **kwargs)
+            known = _meta_layout(out)
+            if known is not None:
+                self._meta_outs[key] = known
+            return out
+        if isinstance(known, list):
+            return tuple(_meta_empty(k) for k in known)
+        return _meta_empty(known)
 
     def _record(self, func, args, kwargs, out) -> None:
         packet = func.overloadpacket
         op = packet.__name__
         base = op[:-1] if op.endswith("_") and not op.startswith("_") else op
         if func.is_view or op in _FREE_OPS or base in _FREE_OPS:
+            return
+        path = _call_path(self._top)
+        if path is None:
+            return
+        namespace = func.namespace
+        if namespace in ("_c10d_functional", "c10d", "_dtensor"):
+            if op not in _FREE_COLLECTIVES:
+                self._collective(func, namespace, op, args, kwargs, out, path)
             return
         written, read = [], []
         by_name: Dict[str, List[torch.Tensor]] = {}
@@ -535,6 +711,9 @@ class _OpRecorder(TorchDispatchMode):
             else:
                 read += ts
         results = _tensors(out)
+        if self._host_free and all(t.device.type == "cpu"
+                                   for t in read + written + results):
+            return
         operand_b = _nbytes(read)
         if base in _GATHERS and read:
             operand_b += _nbytes(results) - _nbytes(read[:1])
@@ -566,9 +745,34 @@ class _OpRecorder(TorchDispatchMode):
         self._add(CommandEntry(
             index=0, name=str(func), opcode=op, computation="eager",
             multiplier=1, result_bytes=result_b, operand_bytes=operand_b,
-            engine=engine, flops=flops,
-            op_path=f"{_call_path(self._top)}/{op}",
+            engine=engine, flops=flops, op_path=f"{path}/{op}",
             raw=raw[:240]))
+
+    def _collective(self, func, namespace, op, args, kwargs, out,
+                    path) -> None:
+        if (namespace, op) not in _COLLECTIVES:
+            raise NotImplementedError(f"op recorder: collective {func} has no "
+                                      f"opcode among COLLECTIVE_OPS")
+        opcode, sent, written = _COLLECTIVES[(namespace, op)]
+        named: Dict[str, Any] = {}
+        for i, a in enumerate(func._schema.arguments):
+            named[a.name] = args[i] if i < len(args) else kwargs.get(a.name)
+        operand_b = _nbytes(_tensors(named[sent])) if sent else 0
+        result_b = _nbytes(_tensors(named[written] if written else out))
+        group = named.get("group_name", named.get("process_group"))
+        n = _group_size(group)
+        if opcode == "collective-permute-done":
+            link = 0          # the send carries the bytes over the link
+        else:
+            link = _link_bytes(opcode, result_b, operand_b, n)
+        shapes = [list(t.shape) for t in _tensors(
+            named[sent] if sent else named[written])]
+        self._add(CommandEntry(
+            index=0, name=str(func), opcode=opcode, computation="eager",
+            multiplier=1, result_bytes=result_b, operand_bytes=operand_b,
+            engine="collective", group_size=n, link_bytes=link,
+            op_path=f"{path}/{op}",
+            raw=f"{func} {shapes} group={n} link={link}B"[:240]))
 
     def stream(self) -> CommandStream:
         """The recorded entries; ``text_bytes`` is the size of their listing
@@ -583,8 +787,11 @@ def recorded_call(fn: Callable, device: Optional[torch.device] = None
                   ) -> Tuple[Any, CommandStream, float]:
     """Run ``fn()`` once under the op recorder: its result, its op-level
     stream and the run's wall time (on a CUDA ``device`` until its current
-    stream has run it)."""
-    rec = _OpRecorder(sys._getframe())
+    stream has run it).  On a ``device`` other than the CPU, an op whose
+    tensors all lie on the host is host work, not a command, and is left
+    out (DTensor's index bookkeeping)."""
+    rec = _OpRecorder(sys._getframe(), host_free=device is not None
+                      and device.type != "cpu")
     prev = _kernels.recorder
     _kernels.recorder = rec
     t0 = time.perf_counter()

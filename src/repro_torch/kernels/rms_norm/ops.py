@@ -1,8 +1,9 @@
 """Wrapper of the RMSNorm kernel (``csrc/rms_norm.cu``).
 
 Replaces ``repro.kernels.rms_norm.ops.rms_norm_fused``.  A CPU tensor takes
-the plain version (``ref.rms_norm_ref``); a CUDA tensor launches the kernel
-or raises.
+the plain version (``ref.rms_norm_ref``); a ``meta`` tensor gets an empty
+output of its shape, launching nothing (a recording then holds the
+kernel's entry); a CUDA tensor launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -42,6 +43,8 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
         raise ValueError("rms_norm: x and scale must be contiguous")
     if x.device.type == "cpu":
         return rms_norm_ref(x, scale, eps)
+    if x.device.type == "meta":           # shapes only: nothing to launch
+        return torch.empty_like(x)
     if x.device.type != "cuda":
         raise ValueError(f"rms_norm: unsupported device {x.device}")
     vec = 16 // x.element_size()          # elements per 16-byte vector

@@ -37,11 +37,10 @@ from typing import List, Optional
 import numpy as np
 
 from ..configs import ARCHS, SMOKE_ARCHS
-from ..core.session import TraceSession
-from ..distributed.context import process_tags, shard_path
 from ..obs.profile import SpanProfile
 from ..runtime.server import ContinuousBatchingServer, Request, Server
 from ..tune.policy import load_policy_for
+from .mesh import fleet_session
 
 #: decode steps a launch when ``--tokens-per-launch`` is unset and no tuned
 #: policy exists
@@ -100,9 +99,7 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     tpl = knob(args.tokens_per_launch, "tokens_per_launch",
                DEFAULT_TOKENS_PER_LAUNCH)
-    shard = shard_path(args.trace) if args.trace else None
-    session = TraceSession(name="serve", jsonl_path=shard,
-                           tags=process_tags())
+    session, shard = fleet_session("serve", trace_path=args.trace)
     prof = None
     if args.profile:
         prof = SpanProfile(name="serve")

@@ -23,11 +23,10 @@ from typing import List, Optional
 
 from ..configs import ARCHS, SMOKE_ARCHS
 from ..configs.shapes import ShapeConfig
-from ..core.session import TraceSession
-from ..distributed.context import process_tags, shard_path
 from ..obs.profile import SpanProfile
 from ..runtime.trainer import Trainer
 from ..tune.policy import load_policy_for
+from .mesh import fleet_session
 
 #: steps a launch when ``--steps-per-launch`` is unset and no tuned policy
 #: exists
@@ -67,9 +66,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     if spl is None:
         spl = (policy.knob("steps_per_launch", DEFAULT_STEPS_PER_LAUNCH)
                if policy else DEFAULT_STEPS_PER_LAUNCH)
-    shard = shard_path(args.trace) if args.trace else None
-    session = TraceSession(name="train", jsonl_path=shard,
-                           tags=process_tags())
+    session, shard = fleet_session("train", trace_path=args.trace)
     prof = None
     if args.profile:
         prof = SpanProfile(name="train")

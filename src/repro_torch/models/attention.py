@@ -24,7 +24,8 @@ __all__ = ["attention", "decode_attention", "decode_positions",
            "DecodePositions", "extend_attention", "extend_positions",
            "ExtendPositions", "gather_block_table", "scatter_block_rows",
            "init_kv_cache", "dense_causal_attention",
-           "chunked_causal_attention", "triangle_chunked_attention", "IMPLS"]
+           "chunked_causal_attention", "triangle_chunked_attention",
+           "cached_attention", "IMPLS"]
 
 IMPLS = ("cuda", "ref")
 
@@ -256,7 +257,8 @@ def decode_positions(cfg: ModelConfig, length: torch.Tensor, batch: int,
 
 def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     pos: DecodePositions) -> torch.Tensor:
+                     pos: DecodePositions, norm: Norm = rms_norm
+                     ) -> torch.Tensor:
     """One-token attention against a cache.
 
     x: [B, 1, D]; k_cache/v_cache: [B, S_max, Hkv, hd]; ``pos`` from
@@ -265,29 +267,36 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     indices, so a CUDA graph can capture it; writing in place saves a copy
     of the whole cache per layer and step.  Returns out [B, 1, D].
     """
-    B, _, D = x.shape
-    h, hk, hd = cfg.n_heads_padded, cfg.n_kv_heads, cfg.hd
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k_new = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qk_norm:
-        q = rms_norm(p["q_norm"], q)
-        k_new = rms_norm(p["k_norm"], k_new)
+        q = norm(p["q_norm"], q)
+        k_new = norm(p["k_norm"], k_new)
     if pos.sin is not None:
         q = apply_rope(q, pos.sin, pos.cos)
         k_new = apply_rope(k_new, pos.sin, pos.cos)
     k_cache.index_put_(pos.rows, k_new[:, 0].to(k_cache.dtype))
     v_cache.index_put_(pos.rows, v_new[:, 0].to(v_cache.dtype))
-    n_rep = h // hk
-    scale = hd ** -0.5
+    out = cached_attention(q, k_cache, v_cache, pos.masked)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def cached_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, masked: torch.Tensor
+                     ) -> torch.Tensor:
+    """The decode's attention interior: q [B, 1, H, hd] against the whole
+    caches [B, S_max, Hkv, hd], the positions ``masked`` [B, 1, 1, S_max]
+    left out; returns [B, 1, H, hd]."""
+    B, _, h, hd = q.shape
+    hk = k_cache.shape[2]
     # scores against the whole cache; invalid positions masked by length
-    q_ = q.reshape(B, hk, n_rep, hd)
-    scores = torch.einsum("bgrd,bsgd->bgrs", q_, k_cache).float() * scale
-    scores = scores.masked_fill(pos.masked, torch.finfo(torch.float32).min)
+    q_ = q.reshape(B, hk, h // hk, hd)
+    scores = torch.einsum("bgrd,bsgd->bgrs", q_, k_cache).float() * hd ** -0.5
+    scores = scores.masked_fill(masked, torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bgrs,bsgd->bgrd", probs.to(v_cache.dtype), v_cache)
-    out = out.reshape(B, 1, h, hd)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return out.reshape(B, 1, h, hd)
 
 
 class ExtendPositions(NamedTuple):
@@ -320,7 +329,8 @@ def extend_positions(cfg: ModelConfig, start: torch.Tensor, chunk: int,
 
 def extend_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     pos: ExtendPositions) -> torch.Tensor:
+                     pos: ExtendPositions, norm: Norm = rms_norm
+                     ) -> torch.Tensor:
     """Prompt-chunk attention against a cache (chunked prefill).
 
     x: [B, C, D], C new prompt positions from ``start``; k_cache/v_cache:
@@ -337,8 +347,8 @@ def extend_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     k_new = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"])
     if cfg.qk_norm:
-        q = rms_norm(p["q_norm"], q)
-        k_new = rms_norm(p["k_norm"], k_new)
+        q = norm(p["q_norm"], q)
+        k_new = norm(p["k_norm"], k_new)
     if pos.sin is not None:
         q = apply_rope(q, pos.sin, pos.cos)
         k_new = apply_rope(k_new, pos.sin, pos.cos)

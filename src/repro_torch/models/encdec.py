@@ -24,7 +24,7 @@ stream to fp32.  The shared layers promote their operands the same way
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -34,7 +34,7 @@ from .attention import (IMPLS, attention, decode_attention, decode_positions,
                         init_kv_cache)
 from .layers import (Norm, Params, Spec, cross_entropy_loss, dtype_of, embed,
                      embedding_specs, init_from_specs, layer_params, mlp,
-                     plain_rms_norm, promoted, rms_norm, sinusoidal_positions,
+                     norm_of, plain_rms_norm, promoted, sinusoidal_positions,
                      unembed)
 from .transformer import (_train_route, attention_specs, mlp_specs,
                           train_layers)
@@ -72,9 +72,10 @@ def param_specs(cfg: ModelConfig) -> Any:
 class EncDecLM:
     """Whisper-style encoder-decoder on one device.
 
-    ``impl`` selects the attention route of the full-sequence passes
-    (``"cuda"``: the flash kernel; ``"ref"``: dense softmax); ``device``
-    defaults to ``cuda``.
+    ``impl`` selects the attention route of the full-sequence passes and
+    the norms outside the train path (``"cuda"``: the flash and RMSNorm
+    kernels; ``"ref"``: dense softmax and plain norms); ``device`` defaults
+    to ``cuda``.
     """
 
     def __init__(self, cfg: ModelConfig, impl: str = "cuda",
@@ -86,7 +87,14 @@ class EncDecLM:
             raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
         self.cfg = cfg
         self.impl = impl
+        self.norm = norm_of(impl)
         self.device = resolve_device(device)
+        # the residual stream's sharding constraint, applied where the
+        # reference applies it (entering the layer stack and after each
+        # layer); the identity unless a launcher sets it (the dry-run's
+        # sequence parallelism)
+        self.constraint: Callable[[torch.Tensor], torch.Tensor] = (
+            lambda x: x)
 
     def init_params(self, seed: int = 0) -> Params:
         """Seeded random weights, drawn on the model's device in its type."""
@@ -117,18 +125,20 @@ class EncDecLM:
 
     def _stack(self, layers: Params, x: torch.Tensor, n: int, mode: str,
                block) -> Tuple[torch.Tensor, Norm]:
-        """``block(lp, x, norm)`` over ``n`` stacked layers: the train path
-        (plain norms, per-layer checkpoint when ``cfg.remat``) in
-        ``mode="train"``, the norm kernel's route otherwise."""
+        """``block(lp, x, norm)`` over ``n`` stacked layers, the constraint
+        on each layer's output: the train path (plain norms, per-layer
+        checkpoint when ``cfg.remat``) in ``mode="train"``, the model's
+        norm otherwise."""
+        hook = self.constraint
         if mode == "train":
             _train_route(self)
             x, _ = train_layers(
                 layers, x, self.cfg.remat,
-                lambda lp, y: (block(lp, y, plain_rms_norm), None))
+                lambda lp, y: (hook(block(lp, y, plain_rms_norm)), None))
             return x, plain_rms_norm
         for i in range(n):
-            x = block(layer_params(layers, i), x, rms_norm)
-        return x, rms_norm
+            x = hook(block(layer_params(layers, i), x, self.norm))
+        return x, self.norm
 
     # ---- encoder ---------------------------------------------------------
     def encode(self, params: Params, frames: torch.Tensor,
@@ -152,8 +162,9 @@ class EncDecLM:
         cfg = self.cfg
         S = tokens.shape[1]
         x = embed(params["emb"], tokens) + params["pos_dec"][None, :S]
+        # the reference constrains the decoder's input, not the encoder's
         x, norm = self._stack(
-            params["decoder"], x, cfg.n_layers, mode,
+            params["decoder"], self.constraint(x), cfg.n_layers, mode,
             lambda lp, y, nm: self._dec_block(lp, y, enc_out, nm))
         return norm(params["final_norm"], x)
 
@@ -226,11 +237,12 @@ class EncDecLM:
         pos = decode_positions(cfg, length, B, state["k"].shape[2])
         for i in range(cfg.n_layers):
             lp = layer_params(params["decoder"], i)
-            y = x + decode_attention(lp["attn"], cfg, rms_norm(lp["ln1"], x),
-                                     state["k"][i], state["v"][i], pos)
+            y = x + decode_attention(lp["attn"], cfg, self.norm(lp["ln1"], x),
+                                     state["k"][i], state["v"][i], pos,
+                                     self.norm)
             # cross-attention against the static cross KV, grouped by KV head
             xk, xv = state["xk"][i], state["xv"][i]
-            q = torch.einsum("bsd,dhk->bshk", rms_norm(lp["ln_x"], y),
+            q = torch.einsum("bsd,dhk->bshk", self.norm(lp["ln_x"], y),
                              lp["xattn"]["wq"])
             q_ = q.reshape(B, hk, n_rep, hd)
             s = torch.einsum("bgrd,bsgd->bgrs", q_, xk).float() * hd ** -0.5
@@ -238,8 +250,8 @@ class EncDecLM:
             o = torch.einsum("bgrs,bsgd->bgrd", pr.to(xv.dtype), xv)
             y = y + torch.einsum("bshk,hkd->bsd", o.reshape(B, 1, h, hd),
                                  lp["xattn"]["wo"])
-            x = y + mlp(lp["mlp"], rms_norm(lp["ln2"], y), cfg.act)
-        x = rms_norm(params["final_norm"], x)
+            x = y + mlp(lp["mlp"], self.norm(lp["ln2"], y), cfg.act)
+        x = self.norm(params["final_norm"], x)
         logits = unembed(params["emb"], x)
         length.add_(1)
         return state, logits

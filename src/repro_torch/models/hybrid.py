@@ -9,7 +9,8 @@ structure, ``"groups"/"sub{i}"`` with every leaf stacked on a leading
 
 The attention sub-layers run the flash kernel on the prompt
 (``pos_embed="none"``: no rotary), the Mamba ones the SSD kernel
-(``impl="cuda"``), or both plain routes (``impl="ref"``).  As in the
+(``impl="cuda"``, with the RMSNorm kernel), or the plain routes and plain
+norms (``impl="ref"``).  As in the
 reference, :meth:`HybridLM.prefill` returns a zero KV cache and a zero SSM
 state at length S: decode does not start from the prompt's state.  There is
 no ``prefill_extend``, so chunked prefill and the paged KV backend refuse
@@ -17,7 +18,7 @@ the hybrid (``runtime/kv.py``), as the reference's do.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -27,7 +28,7 @@ from .attention import (IMPLS, attention, decode_attention, decode_positions,
                         init_kv_cache)
 from .layers import (Norm, Params, Spec, cross_entropy_loss, dtype_of, embed,
                      embedding_specs, init_from_specs, layer_params,
-                     map_params, plain_rms_norm, rms_norm, unembed)
+                     map_params, norm_of, plain_rms_norm, unembed)
 from .mamba import (init_ssm_state, mamba_block, mamba_decode_step,
                     mamba_specs)
 from .moe import moe_specs
@@ -67,8 +68,9 @@ def param_specs(cfg: ModelConfig) -> Any:
 class HybridLM:
     """Hybrid (Mamba2 + attention + MoE) LM on one device.
 
-    ``impl`` selects the prompt's routes (``"cuda"``: the flash and SSD
-    kernels; ``"ref"``: dense softmax and the plain chunked scan).
+    ``impl`` selects the prompt's routes and the norms outside the train
+    path (``"cuda"``: the flash, SSD and RMSNorm kernels; ``"ref"``: dense
+    softmax, the plain chunked scan and plain norms).
     ``device`` defaults to ``cuda`` and raises without CUDA unless
     ``"cpu"`` is passed.
     """
@@ -82,7 +84,14 @@ class HybridLM:
             raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
         self.cfg = cfg
         self.impl = impl
+        self.norm = norm_of(impl)
         self.device = resolve_device(device)
+        # the residual stream's sharding constraint, applied where the
+        # reference applies it (entering the layer stack and after each
+        # layer); the identity unless a launcher sets it (the dry-run's
+        # sequence parallelism)
+        self.constraint: Callable[[torch.Tensor], torch.Tensor] = (
+            lambda x: x)
         self.plan = plan(cfg)
         self.period = cfg.attn_every
         self.n_groups = cfg.n_layers // self.period
@@ -129,20 +138,25 @@ class HybridLM:
         if S % chunk:
             raise ValueError(f"{cfg.name}: prompt length {S} is not a "
                              f"multiple of the ssm chunk {chunk}")
-        x = embed(params["emb"], tokens, cfg.embed_scale)
+        x = self.constraint(embed(params["emb"], tokens, cfg.embed_scale))
         if mode == "train":
             _train_route(self)
-            x, auxs = train_layers(
-                params["groups"], x, cfg.remat,
-                lambda gp, y: self._group(gp, y, plain_rms_norm))
+
+            def group(gp: Params, y: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                y, aux = self._group(gp, y, plain_rms_norm)
+                return self.constraint(y), aux
+
+            x, auxs = train_layers(params["groups"], x, cfg.remat, group)
             return plain_rms_norm(params["final_norm"], x), mean_aux(
                 auxs, x.device)
         auxs = []
         for g in range(self.n_groups):
             x, aux = self._group(layer_params(params["groups"], g), x,
-                                 rms_norm)
+                                 self.norm)
+            x = self.constraint(x)
             auxs.append(aux)
-        return rms_norm(params["final_norm"], x), mean_aux(auxs, x.device)
+        return self.norm(params["final_norm"], x), mean_aux(auxs, x.device)
 
     def hidden_states(self, params: Params, tokens: torch.Tensor,
                       mode: str = "serve") -> torch.Tensor:
@@ -236,22 +250,23 @@ class HybridLM:
             ai = si = 0
             for i, (mixer, _) in enumerate(self.plan):
                 sub = gp[f"sub{i}"]
-                h = rms_norm(sub["ln1"], x)
+                h = self.norm(sub["ln1"], x)
                 if mixer == "attn":
                     x = x + decode_attention(sub["attn"], cfg, h,
                                              state["k"][g, ai],
-                                             state["v"][g, ai], pos)
+                                             state["v"][g, ai], pos,
+                                             self.norm)
                     ai += 1
                 else:
                     dx, new = mamba_decode_step(
                         sub["mamba"], cfg, h,
-                        {k: v[g, si] for k, v in ssm.items()})
+                        {k: v[g, si] for k, v in ssm.items()}, self.norm)
                     for k, v in new.items():
                         ssm[k][g, si].copy_(v)
                     x = x + dx
                     si += 1
-                x = x + ffn(sub, cfg, rms_norm(sub["ln2"], x))[0]
-        x = rms_norm(params["final_norm"], x)
+                x = x + ffn(sub, cfg, self.norm(sub["ln2"], x))[0]
+        x = self.norm(params["final_norm"], x)
         logits = unembed(params["emb"], x)
         length.add_(1)
         return state, logits

@@ -2,10 +2,11 @@
 chunked cross-entropy loss.
 
 Plain functions on tensors; parameters are nested dicts of tensors with the
-reference's structure (``repro.models.layers``).  Every norm of the serving
-path goes through the RMSNorm kernel's wrapper; the train path, which
-differentiates through its norms, takes :func:`plain_rms_norm` (the kernels
-have no backward, and the reference trains on its plain route).
+reference's structure (``repro.models.layers``).  Outside the train path a
+model's norm is :func:`norm_of` its route: the RMSNorm kernel's wrapper on
+the kernel route, :func:`plain_rms_norm` on the plain one.  The train path,
+which differentiates through its norms, takes :func:`plain_rms_norm` (the
+kernels have no backward, and the reference trains on its plain route).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from ..kernels.rms_norm.ref import rms_norm_ref
 
 __all__ = ["Params", "Spec", "map_params", "layer_params", "unbind_layers",
            "init_from_specs", "embedding_specs", "rms_norm", "plain_rms_norm",
+           "norm_of",
            "Norm", "rotary", "apply_rope", "sinusoidal_positions", "mlp",
            "embed", "unembed", "cross_entropy_loss", "greedy", "dtype_of",
            "silu", "softplus", "promoted"]
@@ -141,6 +143,12 @@ def plain_rms_norm(p: Params, x: torch.Tensor, eps: float = 1e-6
 
 #: a norm function: :func:`rms_norm` (serving) or :func:`plain_rms_norm`
 Norm = Callable[[Params, torch.Tensor], torch.Tensor]
+
+
+def norm_of(impl: str) -> Norm:
+    """A model's norm outside the train path: the RMSNorm kernel on the
+    kernel route (``impl="cuda"``), plain torch ops on the plain route."""
+    return rms_norm if impl == "cuda" else plain_rms_norm
 
 
 # --------------------------------------------------------------------------

@@ -108,12 +108,13 @@ def _conv_step(window_prev: torch.Tensor, new: torch.Tensor, w: torch.Tensor,
 
 
 def mamba_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                      state: Dict[str, torch.Tensor]
+                      state: Dict[str, torch.Tensor], norm: Norm = rms_norm
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One-token Mamba2 step.
 
     x: [B, 1, D]; state: {h [B,H,P,N], conv_x [B,K-1,di], conv_B, conv_C}.
-    Returns (y [B,1,D], new_state); ``state`` is not modified.
+    Returns (y [B,1,D], new_state); ``state`` is not modified.  ``norm`` is
+    the gated output norm's function.
     """
     B = x.shape[0]
     di, nh, hd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
@@ -134,7 +135,7 @@ def mamba_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
     y = torch.einsum("bn,bhpn->bhp", Cc.float(), h_new)
     y = y + xh * p["D"][None, :, None]
     y = y.reshape(B, di).to(x.dtype)
-    y = rms_norm(p["norm"], y * silu(z))
+    y = norm(p["norm"], y * silu(z))
     new_state = {"h": h_new, "conv_x": conv_x, "conv_B": conv_B,
                  "conv_C": conv_C}
     return (y @ p["out_proj"])[:, None, :], new_state

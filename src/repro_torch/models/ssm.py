@@ -8,7 +8,7 @@ the train path, on the plain SSD route (``impl="ref"``), as
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -17,7 +17,7 @@ from ..device import resolve_device
 from .attention import IMPLS
 from .layers import (Params, Spec, cross_entropy_loss, dtype_of, embed,
                      embedding_specs, init_from_specs, layer_params,
-                     plain_rms_norm, rms_norm, unembed)
+                     norm_of, plain_rms_norm, unembed)
 from .mamba import (init_ssm_state, mamba_block, mamba_decode_step,
                     mamba_specs)
 from .transformer import _train_route, train_layers
@@ -39,8 +39,9 @@ def param_specs(cfg: ModelConfig) -> Any:
 class MambaLM:
     """Mamba2 LM on one device.
 
-    ``impl`` selects the prompt's scan (``"cuda"``: the SSD kernel;
-    ``"ref"``: the plain chunked scan).  ``device`` defaults to ``cuda`` and
+    ``impl`` selects the prompt's scan and the norms outside the train path
+    (``"cuda"``: the SSD and RMSNorm kernels; ``"ref"``: the plain chunked
+    scan and plain norms).  ``device`` defaults to ``cuda`` and
     raises without CUDA unless ``"cpu"`` is passed.
     """
 
@@ -53,14 +54,25 @@ class MambaLM:
             raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
         self.cfg = cfg
         self.impl = impl
+        self.norm = norm_of(impl)
         self.device = resolve_device(device)
+        # the residual stream's sharding constraint, applied where the
+        # reference applies it (entering the layer stack and after each
+        # layer); the identity unless a launcher sets it (the dry-run's
+        # sequence parallelism)
+        self.constraint: Callable[[torch.Tensor], torch.Tensor] = (
+            lambda x: x)
 
     def init_params(self, seed: int = 0) -> Params:
         """Seeded random weights, drawn on the model's device."""
         return init_from_specs(param_specs(self.cfg), dtype_of(self.cfg),
                                self.device, seed)
 
-    def _layers(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+    def _layers(self, params: Params, x: torch.Tensor,
+                hook: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """The layers and the final norm; ``hook`` on each layer's output
+        (the prefill takes none, as the reference's)."""
         S = x.shape[1]
         chunk = min(self.cfg.ssm_chunk, S)
         if S % chunk:
@@ -70,24 +82,27 @@ class MambaLM:
                              f"multiple of the ssm chunk {chunk}")
         for i in range(self.cfg.n_layers):
             lp = layer_params(params["layers"], i)
-            x = x + mamba_block(lp["mamba"], self.cfg, rms_norm(lp["ln"], x),
-                                self.impl)
-        return rms_norm(params["final_norm"], x)
+            x = x + mamba_block(lp["mamba"], self.cfg, self.norm(lp["ln"], x),
+                                self.impl, self.norm)
+            if hook is not None:
+                x = hook(x)
+        return self.norm(params["final_norm"], x)
 
     def hidden_states(self, params: Params, tokens: torch.Tensor,
                       mode: str = "serve") -> torch.Tensor:
         """Final-normed hidden states [B, S, D] of the whole sequence;
         ``mode="train"`` is the train path (``impl="ref"``)."""
-        x = embed(params["emb"], tokens, self.cfg.embed_scale)
+        x = self.constraint(embed(params["emb"], tokens,
+                                  self.cfg.embed_scale))
         if mode != "train":
-            return self._layers(params, x)
+            return self._layers(params, x, self.constraint)
         _train_route(self)
         cfg = self.cfg
 
         def block(lp: Params, y: torch.Tensor) -> Tuple[torch.Tensor, None]:
-            return y + mamba_block(lp["mamba"], cfg,
-                                   plain_rms_norm(lp["ln"], y), self.impl,
-                                   norm=plain_rms_norm), None
+            return self.constraint(y + mamba_block(
+                lp["mamba"], cfg, plain_rms_norm(lp["ln"], y), self.impl,
+                norm=plain_rms_norm)), None
 
         x, _ = train_layers(params["layers"], x, cfg.remat, block)
         return plain_rms_norm(params["final_norm"], x)
@@ -157,9 +172,9 @@ class MambaLM:
             lp = layer_params(params["layers"], i)
             st = {k: v[i] for k, v in state.items()}
             dx, new = mamba_decode_step(lp["mamba"], cfg,
-                                        rms_norm(lp["ln"], x), st)
+                                        self.norm(lp["ln"], x), st, self.norm)
             x = x + dx
             for k, v in new.items():
                 state[k][i].copy_(v)
-        x = rms_norm(params["final_norm"], x)
+        x = self.norm(params["final_norm"], x)
         return state, unembed(params["emb"], x)

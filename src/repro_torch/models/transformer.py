@@ -28,7 +28,8 @@ from .attention import (IMPLS, DecodePositions, ExtendPositions, attention,
                         extend_positions, init_kv_cache)
 from .layers import (Norm, Params, Spec, cross_entropy_loss, dtype_of, embed,
                      embedding_specs, init_from_specs, layer_params, mlp,
-                     plain_rms_norm, rms_norm, unbind_layers, unembed)
+                     norm_of, plain_rms_norm, rms_norm, unbind_layers,
+                     unembed)
 from .moe import moe_block, moe_specs
 
 __all__ = ["TransformerLM", "param_specs", "attention_specs", "mlp_specs",
@@ -126,18 +127,18 @@ def train_layers(layers: Params, x: torch.Tensor, remat: bool,
 
 def block_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 pos: DecodePositions) -> torch.Tensor:
-    x = x + decode_attention(p["attn"], cfg, rms_norm(p["ln1"], x),
-                             k_cache, v_cache, pos)
-    return x + ffn(p, cfg, rms_norm(p["ln2"], x))[0]
+                 pos: DecodePositions, norm: Norm = rms_norm) -> torch.Tensor:
+    x = x + decode_attention(p["attn"], cfg, norm(p["ln1"], x),
+                             k_cache, v_cache, pos, norm=norm)
+    return x + ffn(p, cfg, norm(p["ln2"], x))[0]
 
 
 def block_extend(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  k_cache: torch.Tensor, v_cache: torch.Tensor,
-                 pos: ExtendPositions) -> torch.Tensor:
-    x = x + extend_attention(p["attn"], cfg, rms_norm(p["ln1"], x),
-                             k_cache, v_cache, pos)
-    return x + ffn(p, cfg, rms_norm(p["ln2"], x))[0]
+                 pos: ExtendPositions, norm: Norm = rms_norm) -> torch.Tensor:
+    x = x + extend_attention(p["attn"], cfg, norm(p["ln1"], x),
+                             k_cache, v_cache, pos, norm=norm)
+    return x + ffn(p, cfg, norm(p["ln2"], x))[0]
 
 
 def mean_aux(auxs: List[torch.Tensor], device: torch.device) -> torch.Tensor:
@@ -158,8 +159,9 @@ def _train_route(model: Any) -> None:
 class TransformerLM:
     """Dense or MoE decoder-only LM on one device.
 
-    ``impl`` selects the prefill attention route (``"cuda"``: the flash
-    kernel; ``"ref"``: dense softmax).  ``device`` defaults to ``cuda`` and
+    ``impl`` selects the prefill attention route and the norms outside the
+    train path (``"cuda"``: the flash and RMSNorm kernels; ``"ref"``: dense
+    softmax and plain norms).  ``device`` defaults to ``cuda`` and
     raises without CUDA unless ``"cpu"`` is passed.
     """
 
@@ -179,7 +181,14 @@ class TransformerLM:
             raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
         self.cfg = cfg
         self.impl = impl
+        self.norm = norm_of(impl)
         self.device = resolve_device(device)
+        # the residual stream's sharding constraint, applied where the
+        # reference applies it (entering the layer stack and after each
+        # layer); the identity unless a launcher sets it (the dry-run's
+        # sequence parallelism)
+        self.constraint: Callable[[torch.Tensor], torch.Tensor] = (
+            lambda x: x)
 
     # ---- params ----------------------------------------------------------
     def init_params(self, seed: int = 0) -> Params:
@@ -198,7 +207,7 @@ class TransformerLM:
         ``mode="train"`` is the train path (see the module's docstring);
         it needs the plain route, ``impl="ref"``."""
         cfg = self.cfg
-        x = embed(params["emb"], tokens, cfg.embed_scale)
+        x = self.constraint(embed(params["emb"], tokens, cfg.embed_scale))
         positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
         if mode == "train":
             _train_route(self)
@@ -207,7 +216,7 @@ class TransformerLM:
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
                 y, _, _, aux = block_forward(lp, cfg, y, positions,
                                              self.impl, plain_rms_norm)
-                return y, aux
+                return self.constraint(y), aux
 
             x, auxs = train_layers(params["layers"], x, cfg.remat, block)
             return (plain_rms_norm(params["final_norm"], x),
@@ -215,10 +224,12 @@ class TransformerLM:
         auxs = []
         for i in range(cfg.n_layers):
             x, _, _, aux = block_forward(layer_params(params["layers"], i),
-                                         cfg, x, positions, self.impl)
+                                         cfg, x, positions, self.impl,
+                                         self.norm)
+            x = self.constraint(x)
             if aux is not None:
                 auxs.append(aux)
-        return rms_norm(params["final_norm"], x), mean_aux(auxs, x.device)
+        return self.norm(params["final_norm"], x), mean_aux(auxs, x.device)
 
     def hidden_states(self, params: Params, tokens: torch.Tensor,
                       mode: str = "serve") -> torch.Tensor:
@@ -298,10 +309,11 @@ class TransformerLM:
             state["v"].zero_()
         for i in range(cfg.n_layers):
             x, k, v, _ = block_forward(layer_params(params["layers"], i),
-                                       cfg, x, positions, self.impl)
+                                       cfg, x, positions, self.impl,
+                                       self.norm)
             state["k"][i, :, :S] = k
             state["v"][i, :, :S] = v
-        x = rms_norm(params["final_norm"], x)
+        x = self.norm(params["final_norm"], x)
         logits = unembed(params["emb"], x[:, -1:, :])
         state["length"].fill_(S)
         return state, logits
@@ -324,8 +336,8 @@ class TransformerLM:
                                state["k"].shape[2])
         for i in range(cfg.n_layers):
             x = block_extend(layer_params(params["layers"], i), cfg, x,
-                             state["k"][i], state["v"][i], pos)
-        x = rms_norm(params["final_norm"], x)
+                             state["k"][i], state["v"][i], pos, self.norm)
+        x = self.norm(params["final_norm"], x)
         logits = unembed(params["emb"], x[:, -1:, :])
         length.add_(tokens.shape[1])
         return state, logits
@@ -346,8 +358,8 @@ class TransformerLM:
                                state["k"].shape[2])
         for i in range(cfg.n_layers):
             x = block_decode(layer_params(params["layers"], i), cfg, x,
-                             state["k"][i], state["v"][i], pos)
-        x = rms_norm(params["final_norm"], x)
+                             state["k"][i], state["v"][i], pos, self.norm)
+        x = self.norm(params["final_norm"], x)
         logits = unembed(params["emb"], x)
         length.add_(1)
         return state, logits

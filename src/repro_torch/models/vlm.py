@@ -17,7 +17,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .layers import (Params, cross_entropy_loss, embed, layer_params,
-                     plain_rms_norm, rms_norm)
+                     plain_rms_norm)
 from .transformer import (TransformerLM, _train_route, block_forward,
                           train_layers)
 
@@ -44,20 +44,22 @@ class VlmLM(TransformerLM):
         ``mode="train"`` is the train path (plain norms, ``impl="ref"``,
         per-layer checkpoint when ``cfg.remat``)."""
         cfg = self.cfg
+        x = self.constraint(x)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         if mode == "train":
             _train_route(self)
 
             def block(lp: Params, y: torch.Tensor):
-                return block_forward(lp, cfg, y, positions, self.impl,
-                                     plain_rms_norm)[0], None
+                return self.constraint(block_forward(
+                    lp, cfg, y, positions, self.impl, plain_rms_norm)[0]), None
 
             x, _ = train_layers(params["layers"], x, cfg.remat, block)
             return plain_rms_norm(params["final_norm"], x)
         for i in range(cfg.n_layers):
-            x = block_forward(layer_params(params["layers"], i), cfg, x,
-                              positions, self.impl)[0]
-        return rms_norm(params["final_norm"], x)
+            x = self.constraint(block_forward(
+                layer_params(params["layers"], i), cfg, x, positions,
+                self.impl, self.norm)[0])
+        return self.norm(params["final_norm"], x)
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:

@@ -343,9 +343,10 @@ def test_bf16_weights_on_fp32_frames_promote_as_the_reference():
     got = mine.encode(params, torch.from_numpy(b["frames"]), mode="train")
     assert want.dtype == jnp.float32 and got.dtype == torch.float32
     close(got, want)
-    # the serving route too: the norm kernel's wrapper takes the scale cast
-    # up to the activations' fp32
-    close(mine.encode(params, torch.from_numpy(b["frames"])), want)
+    # the serving route too, on the kernel route: the norm kernel's wrapper
+    # takes the scale cast up to the activations' fp32
+    close(get_model(cfg, device="cpu").encode(
+        params, torch.from_numpy(b["frames"])), want)
     with pytest.raises(TypeError, match="carry"):
         model.loss(rp, {k: jnp.asarray(v) for k, v in b.items()})
     loss, _, grads = grads_of(mine, params, {k: torch.from_numpy(v)
