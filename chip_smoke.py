@@ -304,7 +304,8 @@ of 256 ranks (the ``fake`` backend, rank 0, a 16 x 16 ``DeviceMesh``):
 
 R1. the cells of ``R_CELLS`` on ``meta`` (one arch per family at
     decode_32k and long_500k, whisper-medium's train_4k and prefill_32k,
-    mamba2-780m's train_4k, jamba-v0.1-52b's prefill_32k) and llama3-405b's
+    mamba2-780m's train_4k, jamba-v0.1-52b's prefill_32k; each layer stack
+    recorded as a weighted body) and llama3-405b's
     PP decode cell, the cells in ``R_WORKERS`` spawned processes, one line
     a cell: its status, the three roofline terms, its collective link
     bytes a device, the ops it ran on gathered operands (against torch
@@ -312,14 +313,26 @@ R1. the cells of ``R_CELLS`` on ``meta`` (one arch per family at
     may gather views besides, which the line lists; any other difference
     fails), its recording's seconds; the sweep's seconds;
 R2. gemma-2b x decode_32k's rank-0 program on the card (random local
-    shards): its op-level stream equal to the meta record's entry by entry
-    (opcode, FLOPs, operand and result bytes), no kernel of the port
-    launched (the plain route), the graph's nodes, its pool's bytes and
-    its replay median beside the roofline's max(compute, memory);
+    shards, every layer): its op-level stream equal to the full-depth meta
+    record's entry by entry (opcode, FLOPs, operand and result bytes), its
+    FLOPs, bytes and link bytes equal to the weighted meta record's (each
+    layer stack recorded once, weighted: R1's records), no kernel of the
+    port launched (the plain route), the graph's nodes, its pool's bytes
+    and its replay median beside the roofline's max(compute, memory);
 R3. one hillclimb on R2's cell on meta (``--set attn_chunk=2048``, a
     ``--kernel-credit`` of the attention interior): the override reaches
     the config, the credit moves memory_s by exactly the replaced bytes;
 R4. R1-R3's records through ``report_md``, the markdown printed;
+
+then phase E, the four examples (``examples/*_torch.py``) on the card,
+each in a process of its own, all started together and their lines
+relayed (``E <example> | ...``): quickstart's 4 train steps in 2 doorbells
+and a finite loss; serve_lm's new tokens and doorbells at T = 1 and 4
+equal to the CPU run's (``E_SERVE``); the tour's launch modes (per_op K
+doorbells, graphed and multistep one, footprints > 0, the graphed one
+growing from K = 10 to 100) and its two merged processes; train_lm's 48
+steps in 12 launches, then from its checkpoint on to 64 in 4, the loss
+below its first; at most ``E_LIMIT_S`` seconds;
 
 every profiler window of the script (phase 5, C1, S2, K1-K2, T3 and the
 device times) matches torch.profiler's records to their launches by
@@ -1994,8 +2007,9 @@ def _profile(fn: Callable[[], Any], reps: int = 1, warmup: bool = True,
     counted in the window (``held_to_counts``).  A record missing under a
     launch is the tracer's loss: it prints as a ``tracer loss`` line, and
     the window is taken again up to ``retakes`` times, then raises if
-    ``retakes`` is set.  Any other mismatch raises.  Raises unless a
-    sentinel is left."""
+    ``retakes`` is set.  A window with no sentinel left is taken again the
+    same way, and raises once no retake is left.  Any other mismatch
+    raises."""
     if warmup:
         fn()
     for attempt in range(retakes + 1):
@@ -2006,6 +2020,12 @@ def _profile(fn: Callable[[], Any], reps: int = 1, warmup: bool = True,
         rows = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         if not any(SENTINEL in e.key for e in rows):
+            # the tracer lost the window's records: no time is read from it
+            if attempt < retakes:
+                log(f"{label}: tracer loss: torch.profiler recorded none of "
+                    f"the window's {SENTINELS} {SENTINEL} sentinels "
+                    f"({len(rows)} device rows); the window is taken again")
+                continue
             raise RuntimeError(f"torch.profiler recorded no {SENTINEL} of the "
                                f"window's {SENTINELS} sentinels")
         rows = [e for e in rows if SENTINEL not in e.key]
@@ -4193,10 +4213,11 @@ def mesh_path(card: str, device: torch.device
 # phase R: the dry-run (``launch/dryrun.py``) on the fake 256-rank mesh.  R1
 # records the cells of ``R_CELLS`` and the PP cell on meta; R2 runs one
 # cell's rank-0 program on the card; R3 one hillclimb; R4 the markdown
-# report of R1-R3's records.  The whole sweep (40 cells a mesh) takes hours
-# on the host: a prefill_32k cell of an attention arch records about a
-# million ops, each through a shape function in Python.  So R1 takes one
-# arch per family at decode_32k and long_500k, the train_4k and prefill_32k
+# report of R1-R3's records.  Each layer stack is recorded as a weighted
+# body (``models.layers.layer_loop``), but the whole sweep (40 cells a mesh)
+# still takes an hour or more on the host: the 2 x 16 x 16 mesh's train and
+# prefill cells plan their redistributions op by op.  So R1 takes one arch
+# per family at decode_32k and long_500k, the train_4k and prefill_32k
 # cells of whisper-medium (attention) and mamba2-780m's train_4k and
 # jamba-v0.1-52b's prefill_32k (the causal conv and the SSD scan);
 # ``python -m repro_torch.launch.dryrun --all --mesh both`` runs all 80
@@ -4222,13 +4243,15 @@ R_REPLICATED = {
 #: the ops a torch without 2.13's strided view sharding gathers besides
 #: (the card's 2.11: ``r1_views``)
 R_VIEW_OPS = ("aten.view.default", "aten._unsafe_view.default")
-#: R1's recording seconds of a cell on the H100's host (torch 2.11), to
-#: start the longest first; a cell absent takes a few seconds
-R_COST = collections.defaultdict(lambda: 5.0, {
-    ("jamba-v0.1-52b", "prefill_32k"): 85.5,
-    ("mamba2-780m", "train_4k"): 48.0,
-    ("whisper-medium", "prefill_32k"): 18.1,
-    ("whisper-medium", "train_4k"): 9.6})
+#: R1's recording seconds of a cell on the H100's host (torch 2.11, each
+#: stack a weighted body), to start the longest first; a cell absent takes
+#: a few seconds
+R_COST = collections.defaultdict(lambda: 2.0, {
+    ("jamba-v0.1-52b", "prefill_32k"): 27.0,
+    ("llama3-405b", "decode_32k", "pp"): 13.1,
+    ("mamba2-780m", "train_4k"): 7.4,
+    ("whisper-medium", "train_4k"): 5.6,
+    ("whisper-medium", "prefill_32k"): 2.7})
 R_WORKERS = 4
 R_PP = ("llama3-405b", "decode_32k")
 R_EXEC = ("gemma-2b", "decode_32k")
@@ -4290,21 +4313,25 @@ def dryrun_path(card: str, device: torch.device) -> List[Dict[str, Any]]:
                 if R_WORKERS > 1 else
                 concurrent.futures.ThreadPoolExecutor(1))
         with pool:
-            futs = {cell: pool.submit(dryrun.run_cell, *cell, False)
-                    for cell in sorted(R_CELLS, key=lambda c: R_COST[c],
+            # the PP cell beside them, in its place by its cost
+            pp = R_PP + ("pp",)
+            futs = {cell: pool.submit(dryrun.run_pp_cell, *R_PP, False)
+                    if cell == pp else
+                    pool.submit(dryrun.run_cell, *cell, False)
+                    for cell in sorted(R_CELLS + [pp],
+                                       key=lambda c: R_COST[c],
                                        reverse=True)}
             for arch, shape in R_CELLS:
                 rec = futs[arch, shape].result()
                 log(r_line(card, rec, rec.get("wall_s", 0.0),
                            r1_views(arch, shape, rec)))
                 recs.append(rec)
-        t = time.perf_counter()
-        rec = dryrun.run_pp_cell(*R_PP, False)
+            rec = futs[pp].result()
         if not (rec["pp"] and rec["stream"]["collective_counts"].get(
                 "collective-permute")):
             raise AssertionError(f"R1 pp: no collective-permute: "
                                  f"{rec['stream']['collective_counts']}")
-        log(r_line(card, rec, time.perf_counter() - t))
+        log(r_line(card, rec, rec["wall_s"]))
         recs.append(rec)
         log(f"{card} | R1: {len(recs)} cells in "
             f"{time.perf_counter() - t0:.1f} s")
@@ -4320,14 +4347,17 @@ def dryrun_path(card: str, device: torch.device) -> List[Dict[str, Any]]:
 
 def r2_executed(card: str, device: torch.device) -> Dict[str, Any]:
     """R2: ``R_EXEC``'s rank-0 program on the card, its op-level stream
-    equal to the meta record's entry by entry; its graph's nodes, temp
-    bytes and replay time beside the roofline's bound.  The plain route
-    launches none of the port's kernels."""
+    equal to the full-depth meta record's entry by entry and its totals to
+    the weighted meta record's; its graph's nodes, temp bytes and replay
+    time beside the roofline's bound.  The plain route launches none of the
+    port's kernels."""
     exec_dev = "cuda" if device.type == "cuda" else "meta"
-    meta = dryrun.run_cell(*R_EXEC, False, keep_artifacts=True)
+    meta = dryrun.run_cell(*R_EXEC, False, keep_artifacts=True,
+                           full_depth=True)
+    weighted = dryrun.run_cell(*R_EXEC, False)
     reset_launches()
     rec = dryrun.run_cell(*R_EXEC, False, keep_artifacts=True,
-                          device=exec_dev)
+                          device=exec_dev, full_depth=True)
     if sum(launches.values()):
         raise AssertionError(f"R2: the plain route launched {dict(launches)}")
     cs, cm = rec.pop("_captured"), meta.pop("_captured")
@@ -4344,6 +4374,21 @@ def r2_executed(card: str, device: torch.device) -> Dict[str, Any]:
     tag = f"{R_EXEC[0]} x {R_EXEC[1]} x single"
     log(f"R2 {tag}: {len(got)} op entries equal the meta record's (opcode, "
         f"FLOPs, operand and result bytes)")
+    # the weighting held twice: the weighted meta record against the
+    # full-depth one, and the card's full-depth totals against it
+    totals = ("stream/flops", "stream/memory_bytes",
+              "stream/collective_link_bytes")
+    diff = (dryrun.weighted_differences(weighted, meta)
+            + dryrun.weighted_differences(weighted, rec, totals))
+    if diff:
+        raise AssertionError(f"R2: the weighted meta record against the "
+                             f"full-depth meta and {exec_dev} records: "
+                             f"{diff[:10]}")
+    log(f"R2 {tag}: the weighted meta record equals the full-depth one "
+        f"({len(dryrun.WEIGHTED_FIELDS)} fields), and {exec_dev}'s "
+        f"full-depth FLOPs, bytes and link bytes "
+        f"{[rec['stream'][k.split('/')[1]] for k in totals]} equal it "
+        f"({weighted['stream']['n_ops']} of {len(got)} op entries recorded)")
     if exec_dev != "cuda":
         return rec
     g = rec.get("graph_stream")
@@ -4400,6 +4445,148 @@ def r3_hillclimb(card: str) -> Dict[str, Any]:
         f"memory_s {rec['roofline']['memory_s']*1e3:.3f} -> "
         f"{rec['roofline_kernel_credited']['memory_s']*1e3:.3f} ms")
     return rec
+
+
+# ---------------------------------------------------------------- phase E
+# phase E: the four examples (``examples/*_torch.py``) on the card, each in
+# a process of its own, all started together (train_lm's two runs one after
+# the other); each example's lines are relayed, then checked
+E_EXAMPLES = ("quickstart_torch.py", "serve_lm_torch.py",
+              "command_stream_tour_torch.py")
+#: serve_lm's (new tokens, doorbells) at each T, as the CPU run prints them
+#: (``tests/test_torch_examples.py``, equal to the reference's example)
+E_SERVE = {1: (48, 12), 4: (48, 4)}
+#: train_lm: 48 steps, 4 a launch, one checkpoint at the end; then on to
+#: 64 from it.  The schedule warms up over 100 steps: over 16 steps the loss
+#: moved by less than one batch's noise (10.867 -> 10.834 over 24 steps)
+E_TRAIN = ["--steps", "48", "--seq", "256", "--batch", "8",
+           "--steps-per-launch", "4", "--ckpt-every", "48"]
+E_TRAIN_AGAIN = 64
+E_LIMIT_S = 60.0
+E_TIMEOUT_S = 300
+
+
+def _example(script: str, args: List[str], out: Dict[str, str]) -> None:
+    """Run one example to its end (killed at ``E_TIMEOUT_S``); its output
+    into ``out[script]``, raising on a non-zero exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / script), *args], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        text, _ = proc.communicate(timeout=E_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    out[script] = text + (f"\n(exit {proc.returncode} after "
+                          f"{time.perf_counter() - t0:.1f} s)")
+    if proc.returncode:
+        raise AssertionError(f"E {script} {' '.join(args)}: exit "
+                             f"{proc.returncode}: {text[-3000:]}")
+
+
+def examples_path(card: str, device: torch.device) -> Dict[str, str]:
+    """Phase E: every example on ``device`` in its own process, its lines
+    relayed; then their counts held (see ``E_SERVE``, ``E_TRAIN``)."""
+    t0 = time.perf_counter()
+    dev = ["--device", device.type]
+    out: Dict[str, str] = {}
+    with tempfile.TemporaryDirectory() as ckpt:
+        train = E_TRAIN + dev + ["--ckpt-dir", ckpt]
+        again = train[:1] + [str(E_TRAIN_AGAIN)] + train[2:]
+
+        def train_twice() -> None:
+            _example("train_lm_torch.py", train, out)
+            out["train_lm first"] = out.pop("train_lm_torch.py")
+            _example("train_lm_torch.py", again, out)
+
+        with concurrent.futures.ThreadPoolExecutor(len(E_EXAMPLES) + 1) as ex:
+            futs = [ex.submit(_example, name, dev, out)
+                    for name in E_EXAMPLES] + [ex.submit(train_twice)]
+            for f in futs:
+                f.result()
+    seconds = time.perf_counter() - t0
+    for name, text in out.items():
+        for line in text.splitlines():
+            print(f"E {name} | {line}")
+    check_examples(card, out, learned=device.type == "cuda")
+    log(f"{card} | phase E: the four examples in {seconds:.1f} s")
+    if device.type == "cuda" and seconds > E_LIMIT_S:
+        raise AssertionError(f"phase E took {seconds:.1f} s, over "
+                             f"{E_LIMIT_S} s")
+    return out
+
+
+def _found(pattern: str, text: str, what: str) -> List[Any]:
+    got = re.findall(pattern, text, re.M)
+    if not got:
+        raise AssertionError(f"E {what}: no line matches {pattern!r}")
+    return got
+
+
+def check_examples(card: str, out: Dict[str, str], learned: bool = True
+                   ) -> None:
+    """What each example must have printed: quickstart 4 steps in 2
+    doorbells and a finite loss; serve_lm ``E_SERVE``; the tour's launch
+    modes (per_op K doorbells, graphed and multistep one, every footprint
+    > 0, the graphed footprint growing with K) and two merged shards;
+    train_lm its launches, the restored step and, where ``learned`` (the
+    card's runs; a CPU rehearsal's are too short), a falling loss that the
+    restored run resumes."""
+    steps, bells, loss = _found(
+        r"^trained (\d+) steps in [\d.]+s, (\d+) doorbells .*final loss "
+        r"(\S+)$", out["quickstart_torch.py"], "quickstart")[0]
+    if (int(steps), int(bells)) != (4, 2) or not math.isfinite(float(loss)):
+        raise AssertionError(f"E quickstart: {steps} steps, {bells} "
+                             f"doorbells, loss {loss}")
+    served = {int(T): (int(n), int(d)) for T, n, d in _found(
+        r"^tokens_per_launch=(\d+): (\d+) tokens, (\d+) doorbells",
+        out["serve_lm_torch.py"], "serve_lm")}
+    if served != E_SERVE:
+        raise AssertionError(f"E serve_lm: {served}, want {E_SERVE}")
+    tour = out["command_stream_tour_torch.py"]
+    modes = {(int(K), mode): (int(d), int(b)) for K, mode, d, b in _found(
+        r"^  K=\s*(\d+) (\w+)\s+doorbells=\s*(\d+) footprint=\s*(\d+)B",
+        tour, "tour part 3")}
+    for (K, mode), (d, b) in modes.items():
+        if d != (K if mode == "per_op" else 1) or b <= 0:
+            raise AssertionError(f"E tour K={K} {mode}: {d} doorbells, "
+                                 f"footprint {b} B")
+    if len(modes) != 6 or not modes[100, "graphed"][1] > modes[10, "graphed"][1]:
+        raise AssertionError(f"E tour: launch modes {modes}")
+    shards = _found(r"^==== AGGREGATED TIMELINE \((\d+) shards", tour,
+                    "tour part 5")
+    if shards != ["2"]:
+        raise AssertionError(f"E tour: {shards} shards merged")
+    pat = (r"^steps=(\d+) wall=[\d.]+s doorbells=(\d+) loss (\S+) -> "
+           r"(\S+)$")
+    first = _found(pat, out["train_lm first"], "train_lm")[0]
+    again = _found(pat, out["train_lm_torch.py"], "train_lm again")[0]
+    restored = _found(r"^restored from checkpoint at step (\d+)$",
+                      out["train_lm_torch.py"], "train_lm again")
+    k = int(E_TRAIN[E_TRAIN.index("--steps-per-launch") + 1])
+    n = int(E_TRAIN[1])
+    if ((int(first[0]), int(first[1])) != (n, n // k)
+            or (int(again[0]), int(again[1])) != (E_TRAIN_AGAIN,
+                                                  (E_TRAIN_AGAIN - n) // k)
+            or restored != [str(n)]):
+        raise AssertionError(f"E train_lm: {first}, restored {restored}, "
+                             f"{again}")
+    # the first run learned, and the second started from its weights: the
+    # restored run's first loss (taken before its first update) lies nearer
+    # the first run's last loss than its first, where weights drawn afresh
+    # would start again near the first run's first loss
+    start, end, resumed = float(first[2]), float(first[3]), float(again[2])
+    if learned and not (end < start
+                        and abs(resumed - end) < (start - end) / 2):
+        raise AssertionError(f"E train_lm: loss {first[2]} -> {first[3]}, "
+                             f"then from the checkpoint {again[2]} -> "
+                             f"{again[3]}: not learned and resumed")
+    log(f"{card} | E: quickstart 4 steps in 2 doorbells, loss {loss}; "
+        f"serve_lm {served}; tour modes {modes}, 2 shards merged; train_lm "
+        f"loss {first[2]} -> {first[3]}, restored at step {n}, "
+        f"{again[2]} -> {again[3]}")
 
 
 # ---------------------------------------------------------------- kernels
@@ -4639,6 +4826,9 @@ def main() -> int:
     log("phase R: the dry-run on the fake 256-rank mesh, hillclimb, "
         "report_md")
     dryrun_path(card, device)
+
+    log("phase E: the four examples, each in its own process")
+    examples_path(card, device)
 
     log("kernels at their paths' shapes")
     kernels = [rms_entry(device), flash_entry(device), ssd_entry(device)]

@@ -33,6 +33,13 @@ TPU consumes.  On CUDA the submission unit is a captured CUDA Graph
   ``collective-permute-start`` / ``-done`` pair whose link bytes the send
   carries.  ``wait_tensor`` and ``_wrap_tensor_autograd`` are free.
 
+  A layer stack can be recorded as the reference's scan body is, once for
+  the layers that run the same program: :func:`restamp` stamps the entries
+  recorded since a :func:`mark` with ``multiplier=n`` (and
+  :func:`set_multiplier` the entries to come), and every aggregate of
+  :class:`CommandStream` weights by it.  :class:`weighted_stacks` turns
+  this on for the models' layer loops (``models.layers.layer_loop``).
+
 :class:`CommandEntry`, :class:`CommandStream` (totals, engine and opcode
 counts, collective accounting), :func:`dtype_bytes`, ``COLLECTIVE_OPS`` and
 ``_link_bytes`` are the reference's, as the port's own copy.
@@ -63,6 +70,10 @@ __all__ = [
     "kernel_label",
     "kernel_base",
     "COLLECTIVE_OPS",
+    "set_multiplier",
+    "mark",
+    "restamp",
+    "weighted_stacks",
 ]
 
 _DTYPE_BYTES: Dict[str, float] = {
@@ -118,7 +129,8 @@ class CommandEntry:
     name: str
     opcode: str
     computation: str
-    multiplier: int            # execution count (1; unknown under a conditional)
+    multiplier: int            # execution count (1; the layers a weighted
+                               # body stands for; unknown under a conditional)
     result_bytes: int
     operand_bytes: int
     engine: str                # compute | collective | transfer | control | host | kernel | other
@@ -617,11 +629,13 @@ class _OpRecorder(TorchDispatchMode):
         self._top = top
         self._host_free = host_free    # host-only ops are no commands
         self._inside = 0          # > 0 inside a kernel wrapper
+        self.multiplier = 1       # stamped on each entry (``set_multiplier``)
         # (op, arguments) -> the outputs' layouts, for meta ops
         self._meta_outs: Dict[Any, Any] = {}
 
     def _add(self, e: CommandEntry) -> None:
         e.index = len(self.entries)
+        e.multiplier = self.multiplier
         self.entries.append(e)
 
     # -- kernels (called by kernels.recorded) -------------------------------
@@ -781,6 +795,59 @@ class _OpRecorder(TorchDispatchMode):
         return CommandStream(entries=self.entries,
                              text_bytes=len(text.encode()),
                              n_ops=len(self.entries))
+
+
+def set_multiplier(n: int) -> int:
+    """Stamp ``n`` on the active recorder's next entries; returns the
+    multiplier it replaces (1 while nothing records, and nothing set).
+    For a scope that opens and closes in autograd's backward, where no
+    ``with`` block spans it (``models.layers.weighted_layers``)."""
+    rec = _kernels.recorder
+    if not isinstance(rec, _OpRecorder):
+        return 1
+    prev, rec.multiplier = rec.multiplier, n
+    return prev
+
+
+def mark() -> Optional[int]:
+    """The number of entries the active recorder holds, the position of
+    the next; None while nothing records."""
+    rec = _kernels.recorder
+    return len(rec.entries) if isinstance(rec, _OpRecorder) else None
+
+
+def restamp(at: Optional[int], n: int) -> None:
+    """Stamp ``n`` on the entries recorded since the :func:`mark` ``at``: a
+    layer found, once it has run, to stand for ``n`` layers."""
+    rec = _kernels.recorder
+    if at is None or not isinstance(rec, _OpRecorder):
+        return
+    for e in rec.entries[at:]:
+        e.multiplier = n
+
+
+class weighted_stacks:
+    """A scope in which the models' layer loops, while a recorder records,
+    record a weighted body in place of the layers that run the same
+    program (``models.layers.layer_loop``); ``weighted_stacks(False)``
+    turns it off inside.  :meth:`active` says whether a loop does so now.
+    """
+
+    _on = False
+
+    def __init__(self, on: bool = True) -> None:
+        self.on = on
+
+    def __enter__(self) -> None:
+        self.prev, weighted_stacks._on = weighted_stacks._on, self.on
+
+    def __exit__(self, *exc: Any) -> None:
+        weighted_stacks._on = self.prev
+
+    @staticmethod
+    def active() -> bool:
+        return (weighted_stacks._on
+                and isinstance(_kernels.recorder, _OpRecorder))
 
 
 def recorded_call(fn: Callable, device: Optional[torch.device] = None

@@ -16,7 +16,9 @@ each cell this
   3. records one run of the step through ``CommandStreamCapture``: the op
      recorder (``core/stream.py``) charges what rank 0 runs, at its local
      shards' shapes, with DTensor's collectives under the reference's
-     opcodes and link bytes at their group's size,
+     opcodes and link bytes at their group's size; on ``meta`` each layer
+     stack as the reference's scan body, a weighted layer standing for the
+     layers that run its program (:func:`dry_cell`),
   4. derives the three-term roofline on the H100 (``core/roofline.py``),
   5. appends a JSON record to the results file (resumable; reruns skip
      completed cells).
@@ -46,7 +48,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import collections
 import contextlib
 import dataclasses
 import json
@@ -63,7 +64,7 @@ from ..configs.base import ModelConfig
 from ..configs.shapes import ShapeConfig
 from ..core import (CommandStreamCapture, TraceSession, analyze, attribute,
                     model_flops)
-from ..core.stream import hide_frames
+from ..core.stream import hide_frames, mark, weighted_stacks
 from ..distributed.context import P
 from ..distributed.sharding import ShardingRules, dp_axes, to_placements
 from ..models import get_model, param_specs
@@ -261,14 +262,14 @@ def _block(t: Any, placements: Sequence[Any], mesh: Any
 def _on_replicas(op: Any, args: tuple, kwargs: dict) -> Any:
     """``op`` on replicated copies of its DTensor operands; an in-place op
     keeps its own block of the result, an out-of-place one returns it
-    replicated.  Counted in ``_REPLICATED``."""
+    replicated.  Counted in ``_GATHERED``."""
     from torch.distributed.tensor import Replicate
     from torch.utils._pytree import tree_map
     DT = _dtensor()
-    _REPLICATED[str(op)] += 1
     mesh = next(a.device_mesh for a in args if isinstance(a, DT))
-    largs = tree_map(_replicate, args)
-    out = op(*largs, **tree_map(_replicate, kwargs))
+    with _gathering(op):
+        largs = tree_map(_replicate, args)
+        out = op(*largs, **tree_map(_replicate, kwargs))
     if op._schema.is_mutable:
         me = args[0]
         if not isinstance(me, DT):       # a plain self took the op whole
@@ -372,8 +373,29 @@ def _gather(op: Any, args: tuple, kwargs: dict) -> Any:
 
 _HANDLERS: Dict[Any, Any] = {}
 
-#: the ops that ran on gathered operands in the cell running, by name
-_REPLICATED: "collections.Counter[str]" = collections.Counter()
+#: the ops that ran on gathered operands in the cell running: each
+#: handler's call as (op, the recorder's position before and after it)
+_GATHERED: List[Tuple[str, Optional[int], Optional[int]]] = []
+
+
+@contextlib.contextmanager
+def _gathering(op: Any) -> Iterator[None]:
+    """A handler's gather and its op, kept in ``_GATHERED`` with the
+    entries they record (``replicated_ops``)."""
+    at = mark()
+    yield
+    _GATHERED.append((str(op), at, mark()))
+
+
+def replicated_ops(entries: Sequence[Any]) -> Dict[str, int]:
+    """The record's ``replicated_ops``: the recorded calls of ``_GATHERED``
+    by op, each counted at its first entry's multiplier (a weighted body's
+    call stands for the layers the body does)."""
+    out: Dict[str, int] = {}
+    for op, at, end in _GATHERED:
+        if at is not None and end is not None and end > at:
+            out[op] = out.get(op, 0) + entries[at].multiplier
+    return out
 
 #: the views DTensor refused in the cell running, by (op, shape,
 #: placements, size): the mesh dims whose gather let each through
@@ -446,7 +468,7 @@ def _pad(op: Any, args: tuple, kwargs: dict) -> Any:
     each rank pads its block, the placements kept.  A pending sum is
     reduced first, and a padded dim that a mesh dim splits is gathered
     over it first (GSPMD would trade the halo's rows; counted in
-    ``_REPLICATED``)."""
+    ``_GATHERED``)."""
     from torch.distributed.tensor import Replicate
     me, pad = args[0], list(args[1])
     value = args[2] if len(args) > 2 else kwargs.get("value", 0)
@@ -457,10 +479,9 @@ def _pad(op: Any, args: tuple, kwargs: dict) -> Any:
     split = [p.is_shard() and p.dim in padded for p in me.placements]
     want = [Replicate() if s or p.is_partial() else p
             for p, s in zip(me.placements, split)]
-    if any(split):
-        _REPLICATED[str(op)] += 1
-    if want != list(me.placements):
-        me = me.redistribute(me.device_mesh, want)
+    with _gathering(op) if any(split) else contextlib.nullcontext():
+        if want != list(me.placements):
+            me = me.redistribute(me.device_mesh, want)
     shape = list(me.shape)
     for i in range(0, len(pad), 2):
         shape[me.dim() - 1 - i // 2] += pad[i] + pad[i + 1]
@@ -474,7 +495,7 @@ def _flip(op: Any, args: tuple, kwargs: dict) -> Any:
     """``flip`` (a cumulative sum's backward): each rank flips its block, a
     flipped dim that a mesh dim splits gathered over it first (DTensor
     2.13's own rule, which the card's torch lacks; counted in
-    ``_REPLICATED``)."""
+    ``_GATHERED``)."""
     from torch.distributed.tensor import Replicate
     me, dims = args[0], args[1]
     DT = _dtensor()
@@ -483,10 +504,10 @@ def _flip(op: Any, args: tuple, kwargs: dict) -> Any:
     dims = [d % me.dim() for d in dims]
     split = [p.is_shard() and p.dim in dims for p in me.placements]
     if any(split):
-        _REPLICATED[str(op)] += 1
-        me = me.redistribute(me.device_mesh,
-                             [Replicate() if s else p
-                              for p, s in zip(me.placements, split)])
+        with _gathering(op):
+            me = me.redistribute(me.device_mesh,
+                                 [Replicate() if s else p
+                                  for p, s in zip(me.placements, split)])
     return DT.from_local(torch.flip(me.to_local(), dims), me.device_mesh,
                          me.placements, run_check=False, shape=me.shape,
                          stride=torch.empty(me.shape, device="meta").stride())
@@ -548,15 +569,15 @@ def _view(op: Any, args: tuple, kwargs: dict) -> Any:
     dim flattened from two split dims, which 2.13 shards strided) takes its
     input gathered over one mesh dim that splits it, each in turn, then
     over all, as GSPMD reshards a reshape it cannot split (counted in
-    ``_REPLICATED``).  The gather that served is kept for the same view's
+    ``_GATHERED``).  The gather that served is kept for the same view's
     next call (``_VIEW_GATHER``): DTensor plans each refusal once."""
     me = args[0]
     key = (op, tuple(me.shape), tuple(me.placements), tuple(args[1]))
     plan = _VIEW_GATHER.get(key)
     if plan is not None:
-        _REPLICATED[str(op)] += 1
-        return _default(op, (_gathered(me, plan),) + tuple(args[1:]),
-                        kwargs)
+        with _gathering(op):
+            return _default(op, (_gathered(me, plan),) + tuple(args[1:]),
+                            kwargs)
     try:
         return _default(op, args, kwargs)
     except RuntimeError as e:       # DTensor's refusal, else raised again
@@ -657,7 +678,7 @@ def _sharded_run() -> Iterator[None]:
     mine = _handler_table()
     saved = {op: table[op] for op in mine if op in table}
     table.update(mine)
-    _REPLICATED.clear()
+    _GATHERED.clear()
     _VIEW_GATHER.clear()
     try:
         with implicit_replication():
@@ -694,7 +715,7 @@ def _record(rec: Dict[str, Any], cs: Any, sess: TraceSession, wall: float,
         "model_params_total": n_total,
         "model_params_active": n_active,
         "trace": sess.summary(),
-        "replicated_ops": dict(replicated),
+        "replicated_ops": replicated,
     })
     if cs.step.device.type == "cuda":
         g = cs.graph_stream
@@ -740,12 +761,67 @@ def _capture(cap: CommandStreamCapture, name: str, step: Any,
     return cs, reason
 
 
+#: a record's fields that a weighted recording gives as the full-depth
+#: recording of the same cell does (``weighted_differences``); ``n_ops``
+#: and ``counts_by_opcode`` count a weighted body once
+WEIGHTED_FIELDS = ("roofline", "attribution", "replicated_ops", "memory",
+                   "dropped_shardings", "stream/flops", "stream/memory_bytes",
+                   "stream/collective_link_bytes", "stream/collectives",
+                   "stream/collective_counts")
+
+
+def weighted_differences(a: Dict[str, Any], b: Dict[str, Any],
+                         fields: Sequence[str] = WEIGHTED_FIELDS
+                         ) -> List[Tuple[str, Any, Any]]:
+    """Where the records ``a`` and ``b`` differ in ``fields`` (a path such
+    as ``stream/flops``): integers and strings exactly, floats beyond 1e-9
+    relative, dicts and lists entry by entry.  Empty where a weighted
+    record gives what the full-depth one does."""
+    def walk(x: Any, y: Any, path: str) -> List[Tuple[str, Any, Any]]:
+        if isinstance(x, dict) and isinstance(y, dict):
+            if set(x) != set(y):
+                return [(path, sorted(x), sorted(y))]
+            return [d for k in x for d in walk(x[k], y[k], f"{path}/{k}")]
+        if isinstance(x, list) and isinstance(y, list) and len(x) == len(y):
+            return [d for i, (u, v) in enumerate(zip(x, y))
+                    for d in walk(u, v, f"{path}/{i}")]
+        if (isinstance(x, float) or isinstance(y, float)) and (
+                isinstance(x, (int, float)) and isinstance(y, (int, float))):
+            return ([] if abs(x - y) <= 1e-9 * max(abs(x), abs(y))
+                    else [(path, x, y)])
+        return [] if x == y else [(path, x, y)]
+
+    out: List[Tuple[str, Any, Any]] = []
+    for field in fields:
+        x, y = a, b
+        for k in field.split("/"):
+            x, y = x[k], y[k]
+        out += walk(x, y, field)
+    return out
+
+
 def dry_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Any,
              name: str, rec: Dict[str, Any], device: str = "meta",
-             keep_artifacts: bool = False) -> Dict[str, Any]:
+             keep_artifacts: bool = False,
+             full_depth: Optional[bool] = None) -> Dict[str, Any]:
     """Record one cell of ``cfg`` at ``shape`` on the fake ``mesh`` into
-    ``rec`` (``run_cell`` without the config and mesh lookup)."""
+    ``rec`` (``run_cell`` without the config and mesh lookup).
+
+    On ``meta`` each layer stack is recorded as the reference's scan body
+    is: its layers run until one leaves its input's sharding unchanged,
+    and that layer's entries are weighted by the layers left
+    (``models.layers.layer_loop``); everything outside the stacks (the
+    embedding, the final norm, the loss, the optimizer on the stacked
+    leaves, the decode state) keeps its full depth, and so do the params,
+    the state and the moments.  The totals, the attribution, the memory
+    and ``replicated_ops`` are those of the full-depth recording
+    (``full_depth=True``, the default on the card, whose graph replays);
+    ``n_ops`` and the opcode counts count each recorded layer once (the
+    weighted one standing for the rest), as the reference's count its
+    scan body once."""
     dev = torch.device(device)
+    if full_depth is None:
+        full_depth = dev.type != "meta"
     n_chips = mesh.size()
     # the plain route; on meta the model's own allocations (a fresh state)
     # land on meta too
@@ -783,7 +859,7 @@ def dry_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Any,
     params = _distribute(params_g, p_specs, mesh, dev, _float_fill)
     n_total, n_active = cfg.param_counts()
     t0 = time.time()
-    with _sharded_run():
+    with _sharded_run(), weighted_stacks(not full_depth):
         if shape.kind == "train":
             opt = AdamWState(
                 step=_local((), torch.int32, P(), mesh, dev, "zeros"),
@@ -814,7 +890,7 @@ def dry_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: Any,
             mf = model_flops(n_active, B, "inference")
     wall = time.time() - t0
     _record(rec, cs, sess, wall, n_chips, mf, rules.dropped, n_total,
-            n_active, why, _REPLICATED)
+            n_active, why, replicated_ops(cs.stream.entries))
     if keep_artifacts:
         rec["_captured"] = cs
     return rec
@@ -851,8 +927,10 @@ def cell_skip(arch: str, shape_name: str, multi_pod: bool,
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              keep_artifacts: bool = False,
              overrides: Optional[Dict[str, Any]] = None,
-             device: str = "meta") -> Dict[str, Any]:
-    """Record one cell's rank-0 program; returns the JSON record."""
+             device: str = "meta",
+             full_depth: Optional[bool] = None) -> Dict[str, Any]:
+    """Record one cell's rank-0 program; returns the JSON record
+    (``full_depth``: :func:`dry_cell`)."""
     reason = cell_skip(arch, shape_name, multi_pod, overrides)
     rec: Dict[str, Any] = {
         "arch": arch, "shape": shape_name,
@@ -864,7 +942,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         return rec
     return dry_cell(_cell_config(arch, multi_pod, overrides),
                     SHAPES[shape_name], fake_mesh(multi_pod),
-                    f"{arch}:{shape_name}", rec, device, keep_artifacts)
+                    f"{arch}:{shape_name}", rec, device, keep_artifacts,
+                    full_depth)
 
 
 def run_pp_cell(arch: str, shape_name: str, multi_pod: bool,

@@ -33,7 +33,8 @@ from ..device import resolve_device
 from .attention import (IMPLS, attention, decode_attention, decode_positions,
                         init_kv_cache)
 from .layers import (Norm, Params, Spec, cross_entropy_loss, dtype_of, embed,
-                     embedding_specs, init_from_specs, layer_params, mlp,
+                     embedding_specs, init_from_specs, layer_loop,
+                     layer_params, mlp,
                      norm_of, plain_rms_norm, promoted, sinusoidal_positions,
                      unembed)
 from .transformer import (_train_route, attention_specs, mlp_specs,
@@ -124,20 +125,22 @@ class EncDecLM:
         return y + mlp(lp["mlp"], norm(lp["ln2"], y), cfg.act)
 
     def _stack(self, layers: Params, x: torch.Tensor, n: int, mode: str,
-               block) -> Tuple[torch.Tensor, Norm]:
-        """``block(lp, x, norm)`` over ``n`` stacked layers, the constraint
-        on each layer's output: the train path (plain norms, per-layer
-        checkpoint when ``cfg.remat``) in ``mode="train"``, the model's
-        norm otherwise."""
+               block, shared: Tuple[torch.Tensor, ...] = ()
+               ) -> Tuple[torch.Tensor, Norm]:
+        """``block(lp, x, norm, *shared)`` over ``n`` stacked layers, the
+        constraint on each layer's output: the train path (plain norms,
+        per-layer checkpoint when ``cfg.remat``) in ``mode="train"``, the
+        model's norm otherwise."""
         hook = self.constraint
         if mode == "train":
             _train_route(self)
             x, _ = train_layers(
                 layers, x, self.cfg.remat,
-                lambda lp, y: (hook(block(lp, y, plain_rms_norm)), None))
+                lambda lp, y, *sh: (hook(block(lp, y, plain_rms_norm, *sh)),
+                                    None), shared)
             return x, plain_rms_norm
-        for i in range(n):
-            x = hook(block(layer_params(layers, i), x, self.norm))
+        for i in layer_loop(n, lambda: x):
+            x = hook(block(layer_params(layers, i), x, self.norm, *shared))
         return x, self.norm
 
     # ---- encoder ---------------------------------------------------------
@@ -165,7 +168,8 @@ class EncDecLM:
         # the reference constrains the decoder's input, not the encoder's
         x, norm = self._stack(
             params["decoder"], self.constraint(x), cfg.n_layers, mode,
-            lambda lp, y, nm: self._dec_block(lp, y, enc_out, nm))
+            lambda lp, y, nm, enc: self._dec_block(lp, y, enc, nm),
+            (enc_out,))
         return norm(params["final_norm"], x)
 
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]
@@ -235,7 +239,7 @@ class EncDecLM:
         pos_row = params["pos_dec"].index_select(0, length.reshape(-1).long())
         x = embed(params["emb"], tokens) + pos_row[:, None]
         pos = decode_positions(cfg, length, B, state["k"].shape[2])
-        for i in range(cfg.n_layers):
+        for i in layer_loop(cfg.n_layers, lambda: x):
             lp = layer_params(params["decoder"], i)
             y = x + decode_attention(lp["attn"], cfg, self.norm(lp["ln1"], x),
                                      state["k"][i], state["v"][i], pos,

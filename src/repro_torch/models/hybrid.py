@@ -27,8 +27,8 @@ from ..device import resolve_device
 from .attention import (IMPLS, attention, decode_attention, decode_positions,
                         init_kv_cache)
 from .layers import (Norm, Params, Spec, cross_entropy_loss, dtype_of, embed,
-                     embedding_specs, init_from_specs, layer_params,
-                     map_params, norm_of, plain_rms_norm, unembed)
+                     embedding_specs, init_from_specs, layer_loop,
+                     layer_params, map_params, norm_of, plain_rms_norm, unembed)
 from .mamba import (init_ssm_state, mamba_block, mamba_decode_step,
                     mamba_specs)
 from .moe import moe_specs
@@ -151,12 +151,14 @@ class HybridLM:
             return plain_rms_norm(params["final_norm"], x), mean_aux(
                 auxs, x.device)
         auxs = []
-        for g in range(self.n_groups):
+        groups = layer_loop(self.n_groups, lambda: x)
+        for g in groups:
             x, aux = self._group(layer_params(params["groups"], g), x,
                                  self.norm)
             x = self.constraint(x)
             auxs.append(aux)
-        return self.norm(params["final_norm"], x), mean_aux(auxs, x.device)
+        return self.norm(params["final_norm"], x), mean_aux(
+            groups.per_layer(auxs), x.device)
 
     def hidden_states(self, params: Params, tokens: torch.Tensor,
                       mode: str = "serve") -> torch.Tensor:
@@ -245,7 +247,7 @@ class HybridLM:
         pos = decode_positions(cfg, length, tokens.shape[0],
                                state["k"].shape[3])
         ssm = state["ssm"]
-        for g in range(self.n_groups):
+        for g in layer_loop(self.n_groups, lambda: x):
             gp = layer_params(params["groups"], g)
             ai = si = 0
             for i, (mixer, _) in enumerate(self.plan):

@@ -12,17 +12,19 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Tuple,
-                    Union)
+from typing import (Any, Callable, Dict, Iterable, Iterator, List,
+                    NamedTuple, Optional, Sequence, Tuple, Union)
 
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..core.stream import mark, restamp, set_multiplier, weighted_stacks
 from ..kernels.rms_norm.ops import rms_norm as rms_norm_kernel
 from ..kernels.rms_norm.ref import rms_norm_ref
 
 __all__ = ["Params", "Spec", "map_params", "layer_params", "unbind_layers",
+           "layer_loop", "weighted_layers",
            "init_from_specs", "embedding_specs", "rms_norm", "plain_rms_norm",
            "norm_of",
            "Norm", "rotary", "apply_rope", "sinusoidal_positions", "mlp",
@@ -89,6 +91,190 @@ def unbind_layers(layers: Params) -> List[Params]:
     while isinstance(leaf, dict):
         leaf = next(iter(leaf.values()))
     return [map_params(lambda v: v[i], views) for i in range(len(leaf))]
+
+
+# --------------------------------------------------------------------------
+# layer stacks: every layer, or weighted bodies (the dry-run)
+# --------------------------------------------------------------------------
+def _layout(t: Any) -> Any:
+    """What decides the program a layer runs on its input: the DTensor
+    placements and the shape (a plain tensor: its shape)."""
+    return (tuple(getattr(t, "placements", ())), tuple(t.shape))
+
+
+class layer_loop:
+    """The indices of a loop over a stack of ``n`` layers whose carry
+    ``carry()`` reads (a closure over the loop's variable):
+
+        layers = layer_loop(n, lambda: x)
+        for i in layers:
+            x = block(layer_params(params, i), x)
+
+    It yields every index, except while the dry-run records weighted stacks
+    (``core.stream.weighted_stacks``).  Then it stops at the first layer
+    whose output is laid out as its input was (the same DTensor placements
+    and shape): every later layer would run the same program, so that
+    layer's entries are stamped with the number of layers left, as the
+    reference's scan body counts at its trip count.  DTensor places each
+    result by its own cost model, so the first layer or two (on the
+    embedding's output) can run programs of their own; those are recorded
+    once each.  ``weights`` lists, for each index yielded, the layers it
+    stands for, and :meth:`per_layer` repeats a per-layer value by them."""
+
+    def __init__(self, n: int, carry: Callable[[], Any]) -> None:
+        self.n = n
+        self.carry = carry
+        self.weights: List[int] = []
+
+    def __iter__(self) -> Iterator[int]:
+        if not weighted_stacks.active():
+            self.weights = [1] * self.n
+            yield from range(self.n)
+            return
+        for i in range(self.n):
+            before, at = _layout(self.carry()), mark()
+            self.weights.append(1)
+            yield i
+            if i + 1 < self.n and _layout(self.carry()) == before:
+                self.weights[-1] = self.n - i
+                restamp(at, self.n - i)
+                return
+
+    def per_layer(self, values: List[Any]) -> List[Any]:
+        """``values`` (one a yielded index), each repeated by the layers
+        its index stands for: one a layer of the stack."""
+        return [v for v, m in zip(values, self.weights) for _ in range(m)]
+
+
+class _LayerViews(torch.autograd.Function):
+    """Every layer of one stacked leaf, as views (the loop uses those it
+    runs).  The backward assembles the leaf's gradient as ``unbind``'s
+    does, one ``stack`` of the ``n`` layers' gradients: a layer that did
+    not run takes the gradient of the body that stands for it
+    (``plan``: the (index, layers) of each body, filled as the forward
+    runs)."""
+
+    @staticmethod
+    def forward(ctx: Any, t: torch.Tensor, plan: List[Tuple[int, int]]
+                ) -> Tuple[torch.Tensor, ...]:
+        ctx.plan = plan
+        ctx.set_materialize_grads(False)     # no zeros for the layers not run
+        return tuple(torch.unbind(t, 0))
+
+    @staticmethod
+    def backward(ctx: Any, *grads: torch.Tensor) -> Any:
+        parts = [grads[i] for i, m in ctx.plan for _ in range(m)]
+        return torch.stack(parts), None
+
+
+class _BodyEnter(torch.autograd.Function):
+    """The identity on a body's inputs: its input activations, the inputs
+    every layer shares and its layer's params.  Its backward runs once the
+    body's backward has run.  There autograd would add the ``m`` layers'
+    gradients of each shared input into one, ``m - 1`` additions where the
+    body gives one gradient: they are recorded here, one addition at weight
+    ``m - 1``, as the engine makes it (out of place on a tensor subclass).
+    Then it sets the recorder's multiplier back to what it was outside.
+    ``box`` holds the body's layers (``m``), known once the body has run,
+    and that multiplier (``outer``), which :class:`_BodyExit`'s backward
+    replaced."""
+
+    @staticmethod
+    def forward(ctx: Any, box: Dict[str, int], n_shared: int,
+                *ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        ctx.box, ctx.n_shared = box, n_shared
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx: Any, *grads: torch.Tensor) -> Any:
+        m = ctx.box["m"]
+        if m > 1:
+            set_multiplier(m - 1)
+            for g in grads[:ctx.n_shared]:
+                if g is not None:
+                    g + g
+        set_multiplier(ctx.box["outer"])
+        return (None, None) + grads
+
+
+class _BodyExit(torch.autograd.Function):
+    """The identity on a body's output, and its aux loss (if any) given
+    once for each of the ``m`` layers the body stands for.  The backward,
+    which runs before the body's, stamps ``m`` on what the body's backward
+    records (a recompute under activation checkpointing included), and
+    keeps the multiplier it replaces in ``box`` for :class:`_BodyEnter`."""
+
+    @staticmethod
+    def forward(ctx: Any, box: Dict[str, int], m: int, x: torch.Tensor,
+                aux: Optional[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        ctx.box, ctx.m = box, m
+        ctx.has_aux = aux is not None
+        extra = (tuple(aux.view_as(aux) for _ in range(m))
+                 if ctx.has_aux else ())
+        return (x.view_as(x),) + extra
+
+    @staticmethod
+    def backward(ctx: Any, gx: torch.Tensor, *gaux: torch.Tensor) -> Any:
+        ctx.box["outer"] = set_multiplier(ctx.m)
+        return None, None, gx, (gaux[0] if ctx.has_aux else None)
+
+
+def weighted_layers(layers: Params, x: torch.Tensor,
+                    run: Callable[..., Tuple[torch.Tensor,
+                                             Optional[torch.Tensor]]],
+                    shared: Sequence[torch.Tensor] = ()
+                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The train path's loop over a stack under weighted recording:
+    ``run(layer_params, x, *shared) -> (x, aux)`` layer by layer until a
+    layer's output is laid out as its input was (:class:`layer_loop`);
+    that body's forward and backward are stamped with the layers left, and
+    every stacked leaf's gradient is assembled from ``n`` layer gradients.
+    Returns x and one aux loss a layer (none where ``aux`` is None)."""
+    paths: List[Tuple[str, ...]] = []
+    leaves: List[torch.Tensor] = []
+
+    def flat(t: Any, path: Tuple[str, ...]) -> None:
+        if isinstance(t, dict):
+            for k, v in t.items():
+                flat(v, path + (k,))
+        else:
+            paths.append(path)
+            leaves.append(t)
+
+    flat(layers, ())
+    n = leaves[0].shape[0]
+    plan: List[Tuple[int, int]] = []
+    views = [_LayerViews.apply(t, plan) for t in leaves]
+    auxs: List[torch.Tensor] = []
+    for i in range(n):
+        # the input's need for a gradient decides the backward's program
+        grad_x = x.requires_grad
+        before, at = (_layout(x), grad_x), mark()
+        box = {"outer": 1, "m": 1}
+        outs = list(_BodyEnter.apply(box, len(shared), *shared,
+                                     *([x] if grad_x else []),
+                                     *[v[i] for v in views]))
+        sh, outs = outs[:len(shared)], outs[len(shared):]
+        if grad_x:
+            x = outs.pop(0)
+        lp: Params = {}
+        for path, t in zip(paths, outs):
+            node = lp
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = t
+        x, aux = run(lp, x, *sh)
+        m = (n - i if i + 1 < n and (_layout(x), x.requires_grad) == before
+             else 1)
+        restamp(at, m)
+        box["m"] = m
+        plan.append((i, m))
+        got = _BodyExit.apply(box, m, x, aux)
+        x = got[0]
+        auxs.extend(got[1:])
+        if m > 1:
+            break
+    return x, auxs
 
 
 def init_from_specs(specs: Any, dtype: torch.dtype,

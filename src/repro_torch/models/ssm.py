@@ -16,8 +16,8 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .attention import IMPLS
 from .layers import (Params, Spec, cross_entropy_loss, dtype_of, embed,
-                     embedding_specs, init_from_specs, layer_params,
-                     norm_of, plain_rms_norm, unembed)
+                     embedding_specs, init_from_specs, layer_loop,
+                     layer_params, norm_of, plain_rms_norm, unembed)
 from .mamba import (init_ssm_state, mamba_block, mamba_decode_step,
                     mamba_specs)
 from .transformer import _train_route, train_layers
@@ -80,7 +80,7 @@ class MambaLM:
             # nor falls back
             raise ValueError(f"{self.cfg.name}: prompt length {S} is not a "
                              f"multiple of the ssm chunk {chunk}")
-        for i in range(self.cfg.n_layers):
+        for i in layer_loop(self.cfg.n_layers, lambda: x):
             lp = layer_params(params["layers"], i)
             x = x + mamba_block(lp["mamba"], self.cfg, self.norm(lp["ln"], x),
                                 self.impl, self.norm)
@@ -168,7 +168,7 @@ class MambaLM:
         """
         cfg = self.cfg
         x = embed(params["emb"], tokens, cfg.embed_scale)
-        for i in range(cfg.n_layers):
+        for i in layer_loop(cfg.n_layers, lambda: x):
             lp = layer_params(params["layers"], i)
             st = {k: v[i] for k, v in state.items()}
             dx, new = mamba_decode_step(lp["mamba"], cfg,

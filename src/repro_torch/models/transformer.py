@@ -16,20 +16,22 @@ norms (the kernels have no backward).  With MoE it adds
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 import torch.utils.checkpoint
 
 from ..configs.base import ModelConfig
+from ..core.stream import weighted_stacks
 from ..device import resolve_device
 from .attention import (IMPLS, DecodePositions, ExtendPositions, attention,
                         decode_attention, decode_positions, extend_attention,
                         extend_positions, init_kv_cache)
 from .layers import (Norm, Params, Spec, cross_entropy_loss, dtype_of, embed,
-                     embedding_specs, init_from_specs, layer_params, mlp,
-                     norm_of, plain_rms_norm, rms_norm, unbind_layers,
-                     unembed)
+                     embedding_specs, init_from_specs, layer_loop,
+                     layer_params, mlp, norm_of, plain_rms_norm, rms_norm,
+                     unbind_layers, unembed, weighted_layers)
 from .moe import moe_block, moe_specs
 
 __all__ = ["TransformerLM", "param_specs", "attention_specs", "mlp_specs",
@@ -103,23 +105,32 @@ def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def train_layers(layers: Params, x: torch.Tensor, remat: bool,
-                 block: Callable[[Params, torch.Tensor],
-                                 Tuple[torch.Tensor, Optional[torch.Tensor]]]
+                 block: Callable[..., Tuple[torch.Tensor,
+                                            Optional[torch.Tensor]]],
+                 shared: Sequence[torch.Tensor] = ()
                  ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """``block(layer_params, x) -> (x, aux)`` over the stacked layers for
-    the train path: per-layer views by :func:`~.layers.unbind_layers`, each
-    layer recomputed in the backward when ``remat`` (the reference's
-    ``jax.checkpoint`` of its scan body).  Returns x and the layers' aux
-    losses (those that are not None).  The RNG state is not saved: no step
-    draws random numbers, and reading it is illegal in a CUDA Graph
-    capture."""
+    """``block(layer_params, x, *shared) -> (x, aux)`` over the stacked
+    layers for the train path: per-layer views by
+    :func:`~.layers.unbind_layers`, each layer recomputed in the backward
+    when ``remat`` (the reference's ``jax.checkpoint`` of its scan body).
+    ``shared`` are inputs every layer reads (the encoder's output).
+    Returns x and the layers' aux losses (those that are not None).  The
+    RNG state is not saved: no step draws random numbers, and reading it
+    is illegal in a CUDA Graph capture.  Under the dry-run's weighted
+    recording the loop is :func:`~.layers.weighted_layers`."""
+    def run(lp: Params, y: torch.Tensor, *sh: torch.Tensor
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        if remat:
+            return torch.utils.checkpoint.checkpoint(
+                block, lp, y, *sh, use_reentrant=False,
+                preserve_rng_state=False)
+        return block(lp, y, *sh)
+
+    if weighted_stacks.active():
+        return weighted_layers(layers, x, run, shared)
     auxs: List[torch.Tensor] = []
     for lp in unbind_layers(layers):
-        if remat:
-            x, aux = torch.utils.checkpoint.checkpoint(
-                block, lp, x, use_reentrant=False, preserve_rng_state=False)
-        else:
-            x, aux = block(lp, x)
+        x, aux = run(lp, x, *shared)
         if aux is not None:
             auxs.append(aux)
     return x, auxs
@@ -222,14 +233,16 @@ class TransformerLM:
             return (plain_rms_norm(params["final_norm"], x),
                     mean_aux(auxs, x.device))
         auxs = []
-        for i in range(cfg.n_layers):
+        layers = layer_loop(cfg.n_layers, lambda: x)
+        for i in layers:
             x, _, _, aux = block_forward(layer_params(params["layers"], i),
                                          cfg, x, positions, self.impl,
                                          self.norm)
             x = self.constraint(x)
             if aux is not None:
                 auxs.append(aux)
-        return self.norm(params["final_norm"], x), mean_aux(auxs, x.device)
+        return self.norm(params["final_norm"], x), mean_aux(
+            layers.per_layer(auxs), x.device)
 
     def hidden_states(self, params: Params, tokens: torch.Tensor,
                       mode: str = "serve") -> torch.Tensor:
@@ -307,7 +320,7 @@ class TransformerLM:
                                  f"not fit batch {B} and max_seq {max_seq}")
             state["k"].zero_()
             state["v"].zero_()
-        for i in range(cfg.n_layers):
+        for i in layer_loop(cfg.n_layers, lambda: x):
             x, k, v, _ = block_forward(layer_params(params["layers"], i),
                                        cfg, x, positions, self.impl,
                                        self.norm)
@@ -334,7 +347,7 @@ class TransformerLM:
         length = state["length"]
         pos = extend_positions(cfg, length, tokens.shape[1],
                                state["k"].shape[2])
-        for i in range(cfg.n_layers):
+        for i in layer_loop(cfg.n_layers, lambda: x):
             x = block_extend(layer_params(params["layers"], i), cfg, x,
                              state["k"][i], state["v"][i], pos, self.norm)
         x = self.norm(params["final_norm"], x)
@@ -356,7 +369,7 @@ class TransformerLM:
         length = state["length"]
         pos = decode_positions(cfg, length, tokens.shape[0],
                                state["k"].shape[2])
-        for i in range(cfg.n_layers):
+        for i in layer_loop(cfg.n_layers, lambda: x):
             x = block_decode(layer_params(params["layers"], i), cfg, x,
                              state["k"][i], state["v"][i], pos, self.norm)
         x = self.norm(params["final_norm"], x)

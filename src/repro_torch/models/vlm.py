@@ -16,8 +16,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .layers import (Params, cross_entropy_loss, embed, layer_params,
-                     plain_rms_norm)
+from .layers import (Params, cross_entropy_loss, embed, layer_loop,
+                     layer_params, plain_rms_norm)
 from .transformer import (TransformerLM, _train_route, block_forward,
                           train_layers)
 
@@ -55,7 +55,7 @@ class VlmLM(TransformerLM):
 
             x, _ = train_layers(params["layers"], x, cfg.remat, block)
             return plain_rms_norm(params["final_norm"], x)
-        for i in range(cfg.n_layers):
+        for i in layer_loop(cfg.n_layers, lambda: x):
             x = self.constraint(block_forward(
                 layer_params(params["layers"], i), cfg, x, positions,
                 self.impl, self.norm)[0])

@@ -13,8 +13,9 @@ from repro_torch.models import MambaLM, TransformerLM
 from repro_torch.runtime.server import Server
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PACKAGE_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+PORT_FILES = PACKAGE_FILES + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "examples").glob("*_torch.py"))
 
 
 def _imported_modules(path: Path):
@@ -36,7 +37,7 @@ def test_import_leaves_jax_unloaded():
     mods = ["repro_torch"] + sorted(
         "repro_torch." + ".".join(p.relative_to(ROOT / "src" / "repro_torch")
                                   .with_suffix("").parts)
-        for p in PORT_FILES[:-1] if p.name != "__init__.py")
+        for p in PACKAGE_FILES if p.name != "__init__.py")
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
