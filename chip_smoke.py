@@ -194,12 +194,25 @@ T1. gemma-2b at full width (bf16 params, fp32 master weights and moments,
     s, pool and peak GiB;
 T3. the K=1 gemma-2b train graph decoded and held to torch.profiler's
     records of one replay (as S2), its node types and top kernels, the
-    op-level FLOPs and bytes recorded at its capture and its roofline;
+    op-level FLOPs and bytes recorded at its capture and its roofline
+    against the model FLOPs (``t_work``: 6 a parameter a position passes
+    through);
 T2. ``benchmarks/bench_submission.py``'s ``_multistep_economy``
     (deepseek-7b's smoke config, B=4, S=64, K = 1, 4, 16 over 16 steps,
     then 16 more): host us per step with and without the capturing launch,
     doorbells 16 / 4 / 1, final loss, graph nodes and footprint; K=4's
     losses equal K=1's within 1e-3 relative;
+T4. qwen2-moe-a2.7b at published widths on 4 of its 24 layers (the
+    sorted MoE dispatch, forward, backward and remat's recompute in one
+    graph), B=8, S=256, K=1 (4 launches);
+T5. whisper-medium whole (24 + 24 layers), B=8, 1500 fp32 frames and 375
+    decoder tokens, K=1 (4 launches) and K=4 (2 launches);
+T6. llava-next-34b at published widths on 4 of its 60 layers, B=4, 576
+    patch embeddings and 448 text tokens, K=1 (4 launches);
+    each as T1 (an eager control first, then released; its line also names
+    the cut and the train state's GiB) and its K=1 graph decoded as T3,
+    with model FLOPs from the active parameters (MoE) or a position's
+    parameters (whisper: the encoder's against the frames);
 
 then phase P, the submission-policy tuner (``repro_torch.tune``) at
 gemma-2b's full width:
@@ -426,6 +439,7 @@ from repro_torch.models.layers import (init_from_specs,  # noqa: E402
                                        layer_params, map_params)
 from repro_torch.models.moe import (capacity, moe_dense,  # noqa: E402
                                     moe_sorted, moe_sorted_smap, moe_specs)
+from repro_torch.optim.adamw import tree_leaves  # noqa: E402
 from repro_torch.runtime.steps import (make_decode_step,  # noqa: E402
                                        make_input_specs, make_prefill_step)
 from repro_torch.runtime.server import (ContinuousBatchingServer,  # noqa: E402
@@ -2968,16 +2982,49 @@ def kv_path(card: str, device: torch.device) -> Dict[str, Dict[str, int]]:
 # the defaults of launch/train.py (--seq 256 --batch 8)
 T_SHAPE = ShapeConfig("train", 256, 8, "train")
 T1_RUNS = ((1, 6), (4, 2))       # gemma-2b: (K, launches)
-T1_EAGER_STEPS = 8               # the uncaptured control, from the same start
 T1_MAMBA = ((1, 4),)
 # captured against eager losses, step by step: the two runs are the same
 # kernels on the same data, apart from the order of atomic adds (the
-# embedding's gradient); one bf16 step relative (2^-8) bounds them
+# embedding's gradient; the MoE dispatch's gathers); one bf16 step relative
+# (2^-8) bounds them
 T_LOSS_RTOL = 2.0 ** -8
 # benchmarks/bench_submission.py's _multistep_economy
 T2_ARCH, T2_SHAPE = "deepseek-7b", ShapeConfig("bench", 64, 4, "train")
 T2_KS, T2_STEPS = (1, 4, 16), 16
 T2_RTOL = 1e-3                   # tests/test_runtime_integration.py
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainRun:
+    """One family's runs in phase T4-T6: the published config cut to
+    ``n_layers`` decoder layers (None: uncut), every width kept, trained at
+    ``shape``; ``runs`` are (K, launches)."""
+    arch: str
+    n_layers: Optional[int]
+    shape: ShapeConfig
+    runs: Tuple[Tuple[int, int], ...]
+    why: str
+
+
+# T4-T6: the families T1 does not train, at published widths.  Train state
+# is about 16 bytes a parameter (bf16 params and grads, fp32 master weights
+# and moments): qwen2-moe and llava are cut to 4 layers (46.5 / 50.4 GB),
+# whisper-medium (16.2 GB) runs whole, and at K=4 as well.  One jamba period
+# (212 GB) or one grok layer (105 GB) needs more than one card.
+T_FAMILIES = (
+    # C = 21 slots an expert from a row of 256 tokens (60 experts, top-4,
+    # capacity factor 1.25)
+    TrainRun("qwen2-moe-a2.7b", 4, T_SHAPE, ((1, 4),),
+             "the sorted MoE dispatch's forward and backward in one graph"),
+    # Whisper's 30 s window of 1500 frames; SyntheticTokens gives the
+    # decoder S // enc_seq_ratio = 375 tokens
+    TrainRun("whisper-medium", None, ShapeConfig("train", 1500, 8, "train"),
+             ((1, 4), (4, 2)),
+             "the encoder-decoder step at its real input size"),
+    # 576 anyres patch embeddings and 448 text tokens
+    TrainRun("llava-next-34b", 4, ShapeConfig("train", 1024, 4, "train"),
+             ((1, 4),), "the vlm step with a full anyres image"),
+)
 
 
 @contextlib.contextmanager
@@ -3015,11 +3062,44 @@ def held_losses(label: str, got: List[float], want: List[float],
     return rel
 
 
-def train_eager(cfg: ModelConfig, steps: int, device: torch.device
-                ) -> List[float]:
+def spec_numel(tree) -> int:
+    """Elements of a param spec tree's leaves."""
+    if isinstance(tree, dict):
+        return sum(spec_numel(v) for v in tree.values())
+    return math.prod(tree.shape)
+
+
+def t_work(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[int, float, str]:
+    """A train step's tokens, its model FLOPs and their formula.
+
+    Tokens are the positions the decoder stack runs: B*S (llava's 576
+    patches with its text), B*S_dec for the encoder-decoder.  Model FLOPs
+    are 6 a parameter a position passes through (forward and backward):
+    MoE counts what a token touches (``param_counts``' active: the router,
+    top-k and shared experts); the encoder-decoder its encoder against the
+    frames and the rest, but the decoder's position table, against the
+    decoder's tokens; every other family the whole tree against B*S."""
+    B, S = shape.global_batch, shape.seq_len
+    specs = model_param_specs(cfg)
+    if cfg.family == "audio":
+        S_dec = max(S // cfg.enc_seq_ratio, 1)
+        enc = spec_numel(specs["encoder"])
+        dec = spec_numel(specs) - enc - spec_numel(specs["pos_dec"])
+        return (B * S_dec, 6.0 * (enc * B * S + dec * B * S_dec),
+                f"6 x ({enc} encoder params x {B * S} frames + {dec} "
+                f"decoder and embedding params x {B * S_dec} tokens)")
+    if cfg.family == "moe":
+        n, what = cfg.param_counts()[1], "active params"
+    else:
+        n, what = spec_numel(specs), "params"
+    return B * S, 6.0 * n * B * S, f"6 x {n} {what} x {B * S} tokens"
+
+
+def train_eager(cfg: ModelConfig, shape: ShapeConfig, steps: int,
+                device: torch.device) -> List[float]:
     """The uncaptured control: ``steps`` eager train steps from the seeded
     start."""
-    tr = Trainer(cfg, T_SHAPE, steps_per_launch=1, seed=0, device=device)
+    tr = Trainer(cfg, shape, steps_per_launch=1, seed=0, device=device)
     tr.train(steps, eager=True)
     losses = tr.losses
     del tr
@@ -3027,18 +3107,23 @@ def train_eager(cfg: ModelConfig, steps: int, device: torch.device
     return losses
 
 
-def train_captured(card: str, cfg: ModelConfig, K: int, n_launch: int,
-                   device: torch.device, eager: List[float]
-                   ) -> Tuple[Trainer, float]:
+def train_captured(card: str, cfg: ModelConfig, shape: ShapeConfig, K: int,
+                   n_launch: int, device: torch.device, eager: List[float],
+                   desc: str = "") -> Tuple[Trainer, float]:
     """``n_launch`` launches of K steps, every launch one graph replay but
     the first (the capture's eager warm-up), held to the eager control's
-    losses; prints the run's line.  The step's op stream is recorded
+    losses; prints the run's line (``desc``, where given, with the state's
+    GiB after the shape).  The step's op stream is recorded
     (``record_captures``) at K = 1.  Returns the trainer and the step's
     time in ms."""
-    label = f"{card} | train {cfg.name} K={K} B={T_SHAPE.global_batch} " \
-            f"S={T_SHAPE.seq_len}"
+    label = f"{card} | train {cfg.name} K={K} B={shape.global_batch} " \
+            f"S={shape.seq_len}"
     torch.cuda.reset_peak_memory_stats()
-    tr = Trainer(cfg, T_SHAPE, steps_per_launch=K, seed=0, device=device)
+    tr = Trainer(cfg, shape, steps_per_launch=K, seed=0, device=device)
+    if desc:
+        state = sum(t.numel() * t.element_size()
+                    for t in tree_leaves((tr.params, tr.opt_state)))
+        label += f" ({desc}; state {state / 2**30:.2f} GiB)"
     reset_launches()
     t0 = time.perf_counter()
     with record_captures() if K == 1 else contextlib.nullcontext():
@@ -3059,7 +3144,7 @@ def train_captured(card: str, cfg: ModelConfig, K: int, n_launch: int,
                              f"{len(events)} replays for {n_launch} launches")
     rel = held_losses(label, tr.losses, eager, T_LOSS_RTOL)
     step_ms = float(np.median([a.elapsed_time(b) for a, b in events])) / K
-    tokens = T_SHAPE.global_batch * T_SHAPE.seq_len * K * (n_launch - 1)
+    tokens = t_work(cfg, shape)[0] * K * (n_launch - 1)
     nbytes, nodes = step.footprint()
     log(f"{label}: step {step_ms:.3f} ms (replay, CUDA events), "
         f"{tokens / wall:.0f} tokens/s, loss {tr.losses[0]:.5f} -> "
@@ -3075,15 +3160,13 @@ def train_graph(card: str, tr: Trainer, step_ms: float) -> None:
     """T3: the K=1 train graph decoded at commit and held to the
     profiler's records over one replay (``held_to_graph``); its node types,
     top kernels, the step's op-level FLOPs and bytes and its roofline
-    beside the measured replay."""
+    beside the measured replay, with the model FLOPs of ``t_work``."""
     name = f"{tr.cfg.name} train K=1"
     step = tr.graphs()["train K=1"]
     cs = CommandStreamCapture().capture_compiled(name, step)
     counts = held_to_graph(f"{card} | {name}", step, cs)
-    n_params = sum(x.numel() for x in _leaves(tr.params))
-    tokens = T_SHAPE.global_batch * T_SHAPE.seq_len
-    rep = analyze(cs, chips=1, model_flops_total=6 * n_params * tokens,
-                  name=name)
+    _, model_flops, formula = t_work(tr.cfg, tr.shape)
+    rep = analyze(cs, chips=1, model_flops_total=model_flops, name=name)
     bound_ms = rep.step_time_s * 1e3
     log(f"{card} | {name} graph: {counts}; op-level stream "
         f"{cs.stream.n_ops} entries, {rep.flops_per_device / 1e12:.3f} "
@@ -3091,8 +3174,28 @@ def train_graph(card: str, tr: Trainer, step_ms: float) -> None:
         f"{rep.compute_s * 1e3:.3f} ms, memory {rep.memory_s * 1e3:.3f} ms, "
         f"bound {bound_ms:.3f} ms ({rep.bottleneck}); measured replay "
         f"{step_ms:.3f} ms: {bound_ms / step_ms:.1%} of the roofline; "
-        f"model/stream FLOPs {rep.model_flops_ratio:.3f}")
+        f"model FLOPs {model_flops:.6e} = {formula}; model/stream FLOPs "
+        f"{rep.model_flops_ratio:.3f}")
     print(render_roofline_row(rep), flush=True)
+
+
+def train_runs(card: str, cfg: ModelConfig, shape: ShapeConfig,
+               runs: Tuple[Tuple[int, int], ...], device: torch.device,
+               decode: bool, desc: str = "") -> None:
+    """One config's eager control, then each (K, launches) run held to it,
+    its K=1 graph decoded (T3) where ``decode``; each trainer is released
+    before the next."""
+    eager = train_eager(cfg, shape, max(K * n for K, n in runs), device)
+    log(f"{card} | train {cfg.name} eager control: losses {eager}")
+    for K, n_launch in runs:
+        tr, step_ms = train_captured(card, cfg, shape, K, n_launch, device,
+                                     eager, desc)
+        if K == 1 and decode:
+            log("phase T3: the train graph decoded and held to the "
+                "profiler")
+            train_graph(card, tr, step_ms)
+        del tr
+        free()
 
 
 def train_economy(card: str, device: torch.device) -> None:
@@ -3123,27 +3226,45 @@ def train_economy(card: str, device: torch.device) -> None:
                 T2_RTOL)
 
 
+def train_families(card: str, device: torch.device) -> None:
+    """T4-T6: each of ``T_FAMILIES`` cut to its depth at published widths,
+    its eager control, its runs and its K=1 graph decoded (T3)."""
+    for i, run in enumerate(T_FAMILIES, 4):
+        full = ARCHS[run.arch]
+        cfg = dataclasses.replace(full, n_layers=run.n_layers or
+                                  full.n_layers)
+        B, S = run.shape.global_batch, run.shape.seq_len
+        if cfg == full:
+            desc = (f"{cfg.n_enc_layers} + {cfg.n_layers} layers, uncut"
+                    if cfg.is_encoder_decoder else
+                    f"{cfg.n_layers} layers, uncut")
+        else:
+            desc = f"{cfg.n_layers} of {full.n_layers} layers"
+        if cfg.family == "audio":
+            desc += (f"; {S} frames, {t_work(cfg, run.shape)[0] // B} "
+                     f"decoder tokens")
+        elif cfg.family == "vlm":
+            desc += (f"; {cfg.n_patches} patch embeddings, "
+                     f"{S - cfg.n_patches} text tokens")
+        log(f"phase T{i}: train {cfg.name} ({desc}), {run.shape}, remat "
+            f"{cfg.remat}: {run.why}")
+        train_runs(card, cfg, run.shape, run.runs, device, True, desc)
+
+
 def train_path(card: str, device: torch.device) -> None:
     """Phase T: training on the train route (``impl="ref"``, no port
     kernel), every launch one CUDA Graph replay."""
+    t0 = time.perf_counter()
     free()
     for arch, runs in (("gemma-2b", T1_RUNS), ("mamba2-780m", T1_MAMBA)):
         cfg = ARCHS[arch]
         log(f"phase T1: train {cfg.name}, {T_SHAPE}, remat {cfg.remat}")
-        eager = train_eager(cfg, max(K * n for K, n in runs), device)
-        log(f"{card} | train {cfg.name} eager control: losses {eager}")
-        for K, n_launch in runs:
-            tr, step_ms = train_captured(card, cfg, K, n_launch, device,
-                                         eager)
-            if K == 1 and arch == "gemma-2b":
-                log("phase T3: the train graph decoded and held to the "
-                    "profiler")
-                train_graph(card, tr, step_ms)
-            del tr
-            free()
+        train_runs(card, cfg, T_SHAPE, runs, device, arch == "gemma-2b")
     log("phase T2: bench_submission's _multistep_economy")
     train_economy(card, device)
     free()
+    train_families(card, device)
+    log(f"{card} | phase T: {time.perf_counter() - t0:.1f} s")
 
 
 # ---------------------------------------------------------------- phase P

@@ -233,10 +233,13 @@ def port_trainer(arch, ref, **kw):
                    params=params, **kw)
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "deepseek-7b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "deepseek-7b",
+                                  "qwen2-moe-a2.7b"])
 def test_trainer_matches_reference(arch):
     """8 fp32 steps from the reference's weights: every launch's loss, the
-    doorbells, their names and payload bytes, and the run's dict."""
+    doorbells, their names and payload bytes, and the run's dict.  The MoE
+    smoke config trains through the sorted dispatch (capacity 20 of a row's
+    128 slots over 8 experts), its routes its own in each package."""
     ref = ref_trainer(arch, seed=3)
     mine = port_trainer(arch, ref)
     want = ref.train(8)
@@ -408,12 +411,66 @@ def test_train_cli_runs_on_cpu():
 
 
 # ------------------------------------------------------------------ chip_smoke
+# phase T4-T6 at smoke size: each family's own small shape (whisper: 64
+# frames, 16 decoder tokens; llava: 8 patches, 24 text tokens), remat on as
+# on the card, the cut configs on 1 of their 2 layers
+T_SMOKE_SHAPES = {"qwen2-moe-a2.7b": ShapeConfig("train", 32, 2, "train"),
+                  "whisper-medium": ShapeConfig("train", 64, 2, "train"),
+                  "llava-next-34b": ShapeConfig("train", 32, 2, "train")}
+
+
+def test_chip_smoke_t_work():
+    """Phase T's tokens and model FLOPs a step: gemma-2b's are T1's and
+    T3's before (B*S and 6 x the params T3 summed, 2506172416 at published
+    widths: the count of the spec tree, which the trainer's params equal);
+    qwen2-moe on 4 layers counts its active parameters (0.967 B), whisper
+    its encoder against the frames and the rest but the position table
+    against the decoder's tokens, llava every parameter against its
+    patches and text."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.configs import ARCHS as FULL
+    from repro_torch.models import param_specs
+
+    tokens, flops, formula = cs.t_work(FULL["gemma-2b"], cs.T_SHAPE)
+    assert (tokens, flops) == (2048, 6.0 * 2506172416 * 2048)
+    assert formula == "6 x 2506172416 params x 2048 tokens"
+    smoke = SMOKE_ARCHS["gemma-2b"]
+    tr = Trainer(smoke, SHAPE, steps_per_launch=1, device="cpu")
+    n = sum(t.numel() for t in tree_leaves(tr.params))
+    assert cs.t_work(smoke, SHAPE)[:2] == (128, 6.0 * n * 128)
+
+    moe = dataclasses.replace(FULL["qwen2-moe-a2.7b"], n_layers=4)
+    active = moe.param_counts()[1]
+    assert round(active / 1e9, 3) == 0.967
+    assert cs.t_work(moe, cs.T_SHAPE)[:2] == (2048, 6.0 * active * 2048)
+    assert "active params" in cs.t_work(moe, cs.T_SHAPE)[2]
+
+    whisper = FULL["whisper-medium"]
+    specs = param_specs(whisper)
+    enc = cs.spec_numel(specs["encoder"])
+    dec = cs.spec_numel(specs) - enc - whisper.max_position * whisper.d_model
+    shape = cs.T_FAMILIES[1].shape
+    assert cs.t_work(whisper, shape)[:2] == (
+        8 * 375, 6.0 * (enc * 8 * 1500 + dec * 8 * 375))
+
+    llava = dataclasses.replace(FULL["llava-next-34b"], n_layers=4)
+    n = cs.spec_numel(param_specs(llava))
+    assert round(n / 1e9, 3) == 3.149
+    assert cs.t_work(llava, cs.T_FAMILIES[2].shape)[:2] == (
+        4 * 1024, 6.0 * n * 4 * 1024)
+
+
 def test_chip_smoke_phase_t_rehearsal(monkeypatch):
     """The CPU path of ``chip_smoke.py``'s phase T at smoke size: smoke
     configs under the full names, a small shape; what needs the card (CUDA
     events, memory statistics, the graph's footprint, the profiler's hold
     of the decoded graph) is stubbed.  T1's captured and eager losses must
-    agree, T2's doorbells be 16 / 4 / 1 and its K=1 and K=4 losses agree."""
+    agree, T2's doorbells be 16 / 4 / 1 and its K=1 and K=4 losses agree.
+    T4-T6 run qwen2-moe-, whisper- and llava-smoke (``T_SMOKE_SHAPES``):
+    one line a run, held to its eager control, whisper's K=4 run two
+    doorbells for 8 steps, each K=1 graph decoded with its model FLOPs
+    (MoE: the active parameters of the cut config)."""
     import contextlib
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
@@ -432,9 +489,15 @@ def test_chip_smoke_phase_t_rehearsal(monkeypatch):
         monkeypatch.setattr(CapturedStep, "__call__", call)
 
     lines = []
-    monkeypatch.setattr(cs, "ARCHS", {a: SMOKE_ARCHS[a] for a in
-                                      ("gemma-2b", "mamba2-780m")})
+    archs = {a: SMOKE_ARCHS[a] for a in ("gemma-2b", "mamba2-780m")}
+    archs.update((a, dataclasses.replace(SMOKE_ARCHS[a], remat=True))
+                 for a in T_SMOKE_SHAPES)
+    monkeypatch.setattr(cs, "ARCHS", archs)
     monkeypatch.setattr(cs, "T_SHAPE", ShapeConfig("train", 32, 4, "train"))
+    monkeypatch.setattr(cs, "T_FAMILIES", tuple(
+        dataclasses.replace(r, shape=T_SMOKE_SHAPES[r.arch],
+                            n_layers=r.n_layers and 1)
+        for r in cs.T_FAMILIES))
     monkeypatch.setattr(cs, "replays_timed", timed)
     monkeypatch.setattr(cs, "peak_gib", lambda: 0.0)
     monkeypatch.setattr(cs, "held_to_graph", lambda label, step, c: {})
@@ -444,8 +507,42 @@ def test_chip_smoke_phase_t_rehearsal(monkeypatch):
     monkeypatch.setattr(CapturedStep, "footprint", lambda self: (0, 0))
     cs.train_path("cpu", torch.device("cpu"))
     runs = [x for x in lines if x.startswith("cpu | train ")]
-    assert len(runs) == 5 and "K=4" in runs[2] and "doorbells 2 for 8" in runs[2]
+    assert len(runs) == 5 + 7 and "K=4" in runs[2] and "doorbells 2 for 8" in runs[2]
     economy = [x for x in lines if "train_economy" in x]
     assert [x.split("doorbells ")[1].split(",")[0] for x in economy] == [
         "16", "4", "1"]
     assert any("train K=1 graph" in x and "TFLOP" in x for x in lines)
+    # T4-T6: the eager control, then each run's line with its cut and state
+    assert [x.split(":")[0] for x in runs[5:]] == [
+        "cpu | train qwen2-moe-smoke eager control",
+        "cpu | train qwen2-moe-smoke K=1 B=2 S=32 (1 of 2 layers; state "
+        + runs[6].split("state ")[1].split(")")[0] + ")",
+        "cpu | train whisper-smoke eager control",
+        "cpu | train whisper-smoke K=1 B=2 S=64 (2 + 2 layers, uncut; 64 "
+        "frames, 16 decoder tokens; state "
+        + runs[8].split("state ")[1].split(")")[0] + ")",
+        "cpu | train whisper-smoke K=4 B=2 S=64 (2 + 2 layers, uncut; 64 "
+        "frames, 16 decoder tokens; state "
+        + runs[9].split("state ")[1].split(")")[0] + ")",
+        "cpu | train llava-smoke eager control",
+        "cpu | train llava-smoke K=1 B=2 S=32 (1 of 2 layers; 8 patch "
+        "embeddings, 24 text tokens; state "
+        + runs[11].split("state ")[1].split(")")[0] + ")"]
+    assert "doorbells 4 for 4 steps" in runs[6]
+    assert "doorbells 2 for 8 steps" in runs[9]
+    assert all("GiB" in runs[i].split("state ")[1] for i in (6, 8, 9, 11))
+    for name, cfg in (("qwen2-moe-smoke", "qwen2-moe-a2.7b"),
+                      ("whisper-smoke", "whisper-medium"),
+                      ("llava-smoke", "llava-next-34b")):
+        graph = [x for x in lines if x.startswith(f"cpu | {name} train K=1 "
+                                                   f"graph:")]
+        assert len(graph) == 1 and "TFLOP" in graph[0], name
+        run = next(r for r in cs.T_FAMILIES if r.arch == cfg)
+        cut = dataclasses.replace(archs[cfg],
+                                  n_layers=run.n_layers or archs[cfg].n_layers)
+        tokens, flops, formula = cs.t_work(cut, run.shape)
+        assert f"model FLOPs {flops:.6e} = {formula};" in graph[0], name
+    moe = dataclasses.replace(archs["qwen2-moe-a2.7b"], n_layers=1)
+    assert (f"= 6 x {moe.param_counts()[1]} active params x 64 tokens"
+            in "".join(lines))
+    assert any(x.startswith("cpu | phase T: ") for x in lines)
