@@ -74,7 +74,6 @@ class ProgressTracker:
 
     def __init__(self, session: Optional[TraceSession] = None) -> None:
         self._next_payload = 1
-        self.tokens: List[SemaphoreToken] = []
         self._session = session
 
     def release(self, tied_to: Any) -> SemaphoreToken:
@@ -101,7 +100,6 @@ class ProgressTracker:
             event.record(torch.cuda.current_stream(fence.device))
         tok = SemaphoreToken(payload=payload, fence=fence,
                              t_release=time.perf_counter(), event=event)
-        self.tokens.append(tok)
         sess = resolve_session(self._session)
         if sess is not None:
             sess.emit("progress", "release", t=tok.t_release, payload=payload)

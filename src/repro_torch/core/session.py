@@ -407,7 +407,8 @@ class TraceSession:
         sess = TraceSession("bench")
         tracker = DoorbellTracker(session=sess)
 
-    The session owns the shared clock (``t0``) and the monotonic sequence
+    The session owns the shared clock (``t0``), the device's place on it
+    (:meth:`anchor`, :meth:`device_time`) and the monotonic sequence
     counter; :meth:`emit` is thread-safe so async checkpoint/data threads can
     report concurrently.
     """
@@ -425,6 +426,9 @@ class TraceSession:
         self.tags: Dict[str, Any] = dict(tags or {})
         self.t0 = time.perf_counter()
         self.t0_wall = time.time()
+        # the device clock: a CUDA timing event and the perf_counter reading
+        # beside it (anchor())
+        self._anchor: Optional[Tuple[Any, float]] = None
         self._seq = 0
         self._span_seq = 0
         # The active span stack is contextvar-scoped: each thread (and each
@@ -562,6 +566,35 @@ class TraceSession:
         finally:
             self._span_var.reset(token)
             handle.end()
+
+    # -- the device clock --------------------------------------------------
+    def anchor(self, device: Any) -> None:
+        """Tie the device's clock to this session's: call right after a host
+        synchronize with ``device``, so that the anchor event recorded here
+        runs on an idle stream at the ``perf_counter`` reading taken beside
+        it.  Re-anchoring at each sync keeps the drift between the two
+        clocks to what one interval between syncs accrues.  Nothing to do
+        on the CPU, whose stamps are ``perf_counter`` readings already."""
+        if getattr(device, "type", device) != "cuda":
+            return
+        import torch
+        event = (self._anchor[0] if self._anchor is not None
+                 else torch.cuda.Event(enable_timing=True))
+        event.record(torch.cuda.current_stream(device))
+        self._anchor = (event, time.perf_counter())
+
+    def device_time(self, stamp: Any) -> float:
+        """A stamp on the ``perf_counter`` clock: a recorded CUDA timing
+        event is the anchor's reading plus ``anchor.elapsed_time(stamp)``,
+        and must have been recorded after the anchor and be complete; a
+        float (a CPU stamp) is that reading already."""
+        if isinstance(stamp, float):
+            return stamp
+        if self._anchor is None:
+            raise RuntimeError("device_time: the device clock has no anchor; "
+                               "call anchor() after a host synchronize")
+        event, t = self._anchor
+        return t + event.elapsed_time(stamp) / 1e3
 
     # -- emission ----------------------------------------------------------
     def emit(self, kind: str, name: str,

@@ -58,12 +58,23 @@ fixed device buffers before the replay, so one graph serves every slot:
 Doorbells keep the reference's names and arguments (``prefill``,
 ``prefill_extend``, ``decode_slots``), so their payload bytes equal the
 reference's.
+
+Every one of these graphs is timed on the device from inside: its step
+records a timing event as its first and its last operation
+(:class:`_Stamped`), and each launch leaves a
+:class:`~repro_torch.runtime.scheduler.LaunchRecord` on the tickets it
+served.  The stamps are read at the next host sync the engine makes anyway
+(the first token's read, the decode's harvest), onto the session's clock
+(``TraceSession.anchor``/``device_time``, re-anchored at each such sync),
+and each launch read is one ``graph_launch`` event.
 """
 from __future__ import annotations
 
 import hashlib
+import time
 from collections import OrderedDict
-from typing import TYPE_CHECKING, Any, Callable, Dict, List, Optional
+from typing import (TYPE_CHECKING, Any, Callable, Dict, List, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -72,6 +83,7 @@ from ..configs.shapes import kv_geometry
 from ..core.graphs import CapturedStep
 from ..models.attention import gather_block_table, scatter_block_rows
 from ..models.layers import dtype_of, greedy
+from .scheduler import LaunchRecord
 
 if TYPE_CHECKING:                                    # pragma: no cover
     from .scheduler import RequestTicket
@@ -98,6 +110,36 @@ def _decode_steps(engine: "ContinuousBatchingServer",
     nxt.copy_(tokens)
 
 
+class _Stamped:
+    """``fn`` between two stamps, its first and its last operation.
+
+    On the card each stamp is a CUDA timing event recorded as an ``external``
+    event, which the capture turns into an event-record node: a replay's
+    stamps are the device times at which the graph's first node started
+    and its last node ended.  On the CPU, where the step runs
+    synchronously, they are ``perf_counter`` readings at its head and
+    tail."""
+
+    def __init__(self, fn: Callable[[], None], device: torch.device) -> None:
+        self.fn = fn
+        self.cuda = device.type == "cuda"
+        self.head: Any = -1.0
+        self.tail: Any = -1.0
+        if self.cuda:
+            self.head = torch.cuda.Event(enable_timing=True, external=True)
+            self.tail = torch.cuda.Event(enable_timing=True, external=True)
+
+    def __call__(self) -> None:
+        if self.cuda:
+            self.head.record()
+            self.fn()
+            self.tail.record()
+        else:
+            self.head = time.perf_counter()
+            self.fn()
+            self.tail = time.perf_counter()
+
+
 class KVCacheManager:
     """Backend interface the engine schedules against.
 
@@ -107,7 +149,8 @@ class KVCacheManager:
     slot's prefill by at most one launch and returns the first generated
     token once the prompt is fully in cache; :meth:`reserve_decode` grows
     per-slot capacity ahead of a decode launch (returning victims when the
-    pool cannot); :meth:`decode` runs the one launch over all slots;
+    pool cannot); :meth:`decode` runs the one launch over all slots, and
+    :meth:`decoded` gives its launch record with the requests that rode it;
     :meth:`release` returns the slot's memory.
     """
 
@@ -124,6 +167,9 @@ class KVCacheManager:
         return []
 
     def decode(self) -> np.ndarray:
+        raise NotImplementedError
+
+    def decoded(self, riders: Sequence["RequestTicket"]) -> LaunchRecord:
         raise NotImplementedError
 
     def release(self, slot: int) -> None:
@@ -186,6 +232,10 @@ class _Graphed(KVCacheManager):
         self._decode_graph: Optional[CapturedStep] = None
         self._pending: Dict[int, Dict[str, Any]] = {}
         self.counters = _PrefillCounters()
+        # each graph's stamps by name, and the launches not yet read
+        self._stamps: Dict[str, _Stamped] = {}
+        self._unread: List[Tuple[LaunchRecord, _Stamped]] = []
+        self._decode_rec: Optional[LaunchRecord] = None     # the last one
         # the doorbells: the reference's names, and the reference's
         # arguments at each call, so dispatch names and payload bytes equal
         # its own
@@ -205,10 +255,74 @@ class _Graphed(KVCacheManager):
         out[f"decode T={self.engine.T}"] = self._decode_graph
         return out
 
-    def _captured(self, fn: Callable[[], None]) -> CapturedStep:
-        step = CapturedStep(fn, self.engine.device)
-        step.capture()
+    def _captured(self, name: str, fn: Callable[[], None]) -> CapturedStep:
+        stamped = _Stamped(fn, self.engine.device)
+        step = CapturedStep(stamped, self.engine.device)
+        step.capture()                 # ends in a host synchronize
+        self._stamps[name] = stamped
+        self._read_stamps()
         return step
+
+    def _replay(self, name: str, step: CapturedStep) -> LaunchRecord:
+        """Replay graph ``name`` between two host readings; its record stays
+        unread until the next host sync.  A graph's stamps are read before
+        it replays again: only chunked prefill with nothing decoding comes
+        here with them unread, and the read then waits for the earlier
+        replay, which the stream runs first anyway."""
+        stamped = self._stamps[name]
+        if any(s is stamped for _, s in self._unread):
+            self._read_stamps(upto=stamped)
+        t0 = time.perf_counter()
+        step()
+        rec = LaunchRecord(name, t0, time.perf_counter())
+        self._unread.append((rec, stamped))
+        return rec
+
+    def _read_stamps(self, upto: Optional[_Stamped] = None) -> None:
+        """The unread launches' device start and end on the session's
+        clock, one ``graph_launch`` event each (``t`` the host's enqueue).
+        Called right after a host sync, when every launch has ended, and
+        the clock is re-anchored there; with ``upto``, from that graph's
+        next replay: after waiting for its earlier replay, the launches up
+        to it are read, and the clock keeps its anchor."""
+        sess = self.engine.session
+        n = len(self._unread)
+        if upto is not None:
+            n = 1 + next(i for i, (_, s) in enumerate(self._unread)
+                         if s is upto)
+            if upto.cuda:
+                upto.tail.synchronize()
+        for rec, stamped in self._unread[:n]:
+            rec.t_start = sess.device_time(stamped.head)
+            rec.t_end = sess.device_time(stamped.tail)
+            sess.emit("graph_launch", rec.graph, t=rec.t_enqueue,
+                      dur_s=rec.t_return - rec.t_enqueue,
+                      device_start=rec.t_start - sess.t0,
+                      device_s=rec.device_s)
+        del self._unread[:n]
+        if upto is None:
+            sess.anchor(self.engine.device)
+
+    def _prefilled(self, tix: "RequestTicket", rec: LaunchRecord, c: int,
+                   chunk: bool) -> None:
+        """A prefill or extend launch of ``c`` prompt tokens for ``tix``."""
+        rec.uid, rec.tokens = tix.uid, c
+        tix.launches.append(rec)
+        tix.n_prefill_launches += 1
+        self.counters.prefill_launches += 1
+        self.counters.prefill_chunk_launches += int(chunk)
+        self.counters.prefill_tokens += c
+
+    def decoded(self, riders: Sequence["RequestTicket"]) -> LaunchRecord:
+        """The last decode launch's record (read at its host sync), with
+        its riders and each one's cache length before it: the prompt and
+        every token but the last, which it fed.  Call before the harvest
+        adds the launch's tokens."""
+        rec = self._decode_rec
+        rec.uids = tuple(t.uid for t in riders)
+        rec.lengths = tuple(len(t.request.prompt) + len(t.tokens) - 1
+                            for t in riders)
+        return rec
 
     def _load(self, slot: int, prompt: np.ndarray, pos: int, c: int) -> None:
         """Tokens ``prompt[pos:pos+c]``, the slot and the start into the
@@ -226,21 +340,26 @@ class _Graphed(KVCacheManager):
     # the doorbells' bodies: the arguments are the fixed buffers the graphs
     # read (the last one the tokens), passed so that the doorbell counts
     # their bytes
-    def _prefill_call(self, params: Any, tokens: torch.Tensor) -> None:
+    def _prefill_call(self, params: Any, tokens: torch.Tensor
+                      ) -> LaunchRecord:
         self._check_params(params)
-        self._prefill_graphs[tokens.shape[1]]()
+        S = tokens.shape[1]
+        return self._replay(f"prefill S={S}", self._prefill_graphs[S])
 
-    def _extend_call(self, params: Any, *buffers: Any) -> None:
+    def _extend_call(self, params: Any, *buffers: Any) -> LaunchRecord:
         self._check_params(params)
-        self._extend_graphs[buffers[-1].shape[1]]()
+        C = buffers[-1].shape[1]
+        return self._replay(f"extend C={C}", self._extend_graphs[C])
 
-    def _decode_call(self, params: Any, *buffers: Any) -> None:
+    def _decode_call(self, params: Any, *buffers: Any) -> LaunchRecord:
         self._check_params(params)
-        self._decode_graph()
+        return self._replay(f"decode T={self.engine.T}", self._decode_graph)
 
     def _first_token(self, slot: int) -> int:
         del self._pending[slot]
-        return int(self._nxt[slot, 0])               # host sync
+        tok = int(self._nxt[slot, 0])                # host sync
+        self._read_stamps()
+        return tok
 
 
 class DenseKV(_Graphed):
@@ -266,6 +385,7 @@ class DenseKV(_Graphed):
         self.slots = model.init_slot_state(B, S)
         self._chunks = model.init_slot_state(B, S) if self.chunk else None
         self._decode_graph = self._captured(
+            f"decode T={engine.T}",
             lambda: _decode_steps(engine, self.slots, self._nxt,
                                   self._block))
 
@@ -317,35 +437,35 @@ class DenseKV(_Graphed):
             self._load(slot, prompt, 0, S)
             if S not in self._prefill_graphs:
                 self._prefill_graphs[S] = self._captured(
-                    self._prefill_step(S))
+                    f"prefill S={S}", self._prefill_step(S))
             with eng.session.span("serve.prefill", uid=tix.uid,
                                   prompt_len=S):
-                self._prefill(eng.params, self._tokens[:, :S])
-            self.counters.prefill_launches += 1
-            self.counters.prefill_tokens += S
-            tix.n_prefill_launches += 1
+                rec = self._prefill(eng.params, self._tokens[:, :S])
+            self._prefilled(tix, rec, S, chunk=False)
             return self._first_token(slot)
         pos = p["pos"]
         c = min(self.chunk, len(prompt) - pos)
         self._load(slot, prompt, pos, c)
         if c not in self._extend_graphs:          # idempotent, as above
-            self._extend_graphs[c] = self._captured(self._extend_step(c))
+            self._extend_graphs[c] = self._captured(f"extend C={c}",
+                                                    self._extend_step(c))
         with eng.session.span("serve.prefill_chunk", uid=tix.uid, start=pos,
                               size=c, prompt_len=int(len(prompt))):
-            self._extend(eng.params, self._staging, self._tokens[:, :c])
+            rec = self._extend(eng.params, self._staging,
+                               self._tokens[:, :c])
         p["pos"] = pos + c
-        self.counters.prefill_launches += 1
-        self.counters.prefill_chunk_launches += 1
-        self.counters.prefill_tokens += c
-        tix.n_prefill_launches += 1
+        self._prefilled(tix, rec, c, chunk=True)
         if p["pos"] < len(prompt):
             return None
         return self._first_token(slot)
 
     # -- decode ------------------------------------------------------------
     def decode(self) -> np.ndarray:
-        self._decode_slots(self.engine.params, self.slots, self._nxt)
-        return self._block.cpu().numpy()             # [B, T] host sync
+        self._decode_rec = self._decode_slots(self.engine.params, self.slots,
+                                              self._nxt)
+        blocks = self._block.cpu().numpy()           # [B, T] host sync
+        self._read_stamps()
+        return blocks
 
     def release(self, slot: int) -> None:
         self._pending.pop(slot, None)
@@ -437,7 +557,8 @@ class PagedKV(_Graphed):
                                    device=dev)
         self._lengths = torch.zeros(B, dtype=torch.int32, device=dev)
         self._dec = engine.model.init_slot_state(B, engine.max_seq)
-        self._decode_graph = self._captured(self._decode_step)
+        self._decode_graph = self._captured(f"decode T={engine.T}",
+                                            self._decode_step)
 
     # -- the graphs' steps -------------------------------------------------
     def _decode_step(self) -> None:
@@ -586,19 +707,16 @@ class PagedKV(_Graphed):
             self._table.zero_()
             self._start.zero_()
             self._slot.fill_(slot)
-            self._extend_graphs[c] = self._captured(self._extend_step(c))
+            self._extend_graphs[c] = self._captured(f"extend C={c}",
+                                                    self._extend_step(c))
         self._load(slot, prompt, pos, c)
         self._table.copy_(torch.from_numpy(self.tables[slot]))
         with eng.session.span(span_name, uid=tix.uid, start=pos, size=c,
                               prompt_len=plen):
-            self._extend(eng.params, self.k_pool, self.v_pool, self._table,
-                         self._start, self._tokens[:, :c])
+            rec = self._extend(eng.params, self.k_pool, self.v_pool,
+                               self._table, self._start, self._tokens[:, :c])
         p["pos"] = pos + c
-        self.counters.prefill_launches += 1
-        if p["chunked"]:
-            self.counters.prefill_chunk_launches += 1
-        self.counters.prefill_tokens += c
-        tix.n_prefill_launches += 1
+        self._prefilled(tix, rec, c, chunk=p["chunked"])
         if p["pos"] < plen:
             return None
         # prompt fully in cache: register shareable pages, go decodable.
@@ -659,9 +777,11 @@ class PagedKV(_Graphed):
         lengths = np.where(self.ready, self.lengths, 0)
         self._tables.copy_(torch.from_numpy(tables.astype(np.int32)))
         self._lengths.copy_(torch.from_numpy(lengths.astype(np.int32)))
-        self._decode_slots(self.engine.params, self.k_pool, self.v_pool,
-                           self._tables, self._lengths, self._nxt)
+        self._decode_rec = self._decode_slots(
+            self.engine.params, self.k_pool, self.v_pool, self._tables,
+            self._lengths, self._nxt)
         blocks = self._block.cpu().numpy()           # [B, T] host sync
+        self._read_stamps()
         self.lengths[self.ready] += self.engine.T
         return blocks
 

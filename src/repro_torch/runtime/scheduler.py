@@ -29,12 +29,57 @@ from typing import Any, Deque, Dict, List, Optional, Sequence, Tuple
 
 import collections
 
-__all__ = ["RequestTicket", "AdmissionQueue", "SchedulerPolicy",
-           "FifoPolicy", "PriorityPolicy", "FairSharePolicy", "make_policy",
-           "SCHED_POLICIES", "percentile", "latency_stats"]
+__all__ = ["LaunchRecord", "RequestTicket", "AdmissionQueue",
+           "SchedulerPolicy", "FifoPolicy", "PriorityPolicy",
+           "FairSharePolicy", "make_policy", "SCHED_POLICIES", "percentile",
+           "latency_stats"]
 
 #: terminal ticket states
 FINISHED = ("done", "evicted", "rejected")
+
+
+@dataclasses.dataclass(eq=False)
+class LaunchRecord:
+    """One graph launch of the engine, on the session's ``perf_counter``
+    clock.
+
+    ``t_enqueue`` and ``t_return`` are the host's readings just before the
+    graph's ``replay()`` and after it returns; ``t_start`` and ``t_end`` the
+    device times at which its first node started and its last node ended,
+    ``-1.0`` until its stamps are read at the engine's next host sync
+    (``runtime/kv.py``).  A prefill or extend launch carries its request's
+    ``uid`` and the prompt ``tokens`` it pushed; a decode launch its riders'
+    ``uids`` and the cache length of each before the launch (``lengths``).
+    Every rider of a decode holds the same record object.
+    """
+
+    graph: str                       # "decode T=4", "prefill S=512", ...
+    t_enqueue: float
+    t_return: float
+    t_start: float = -1.0
+    t_end: float = -1.0
+    uid: int = -1
+    tokens: int = 0
+    uids: Tuple[int, ...] = ()
+    lengths: Tuple[int, ...] = ()
+
+    @property
+    def decode(self) -> bool:
+        return self.graph.startswith("decode")
+
+    @property
+    def kv_tokens(self) -> int:
+        """The riders' cache lengths, summed."""
+        return sum(self.lengths)
+
+    @property
+    def device_s(self) -> float:
+        return self.t_end - self.t_start
+
+    @property
+    def launch_latency_s(self) -> float:
+        """Device start less the host time just before ``replay()``."""
+        return self.t_start - self.t_enqueue
 
 
 @dataclasses.dataclass
@@ -59,6 +104,8 @@ class RequestTicket:
     tokens: List[int] = dataclasses.field(default_factory=list)
     n_launches: int = 0              # decode launches this request rode
     n_prefill_launches: int = 0      # prefill/extend launches (chunks)
+    # the records of those launches, in launch order
+    launches: List[LaunchRecord] = dataclasses.field(default_factory=list)
 
     @property
     def uid(self) -> int:

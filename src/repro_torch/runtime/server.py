@@ -291,6 +291,14 @@ class ContinuousBatchingServer(_Serving):
     the emitted tokens as its payload (4 bytes each), so token throughput
     is recoverable from session accounting alone.
 
+    Every graph launch is timed on the device, on the session's clock
+    (``runtime/kv.py``): a ticket's ``launches`` are the records of the
+    prefill or extend launches its request needed and of the decode
+    launches it rode, each launch is one ``graph_launch`` event, and a
+    ``serve.decode_iter`` span closes with its riders (``slots``), their
+    cache lengths summed (``kv_tokens``), the launch's ``device_s`` and
+    ``launch_latency_s`` (device start less the host's enqueue).
+
     Observability plane: the engine installs a
     :class:`~repro_torch.obs.LiveSummary` sink on its session, so
     :meth:`live_summary` answers at any point *during* a run with the same
@@ -446,7 +454,9 @@ class ContinuousBatchingServer(_Serving):
         share of the command stream can't be read off stamped events — it
         is *declared* here instead: one doorbell per decode launch the
         request rode (``n_launches``) plus its prefill, and 4 bytes per
-        emitted token (matching the finish-event payload).
+        emitted token (matching the finish-event payload).  It also carries
+        the device seconds of its prefill or extend launches and of the
+        decode launches it rode, each decode whole (its riders share it).
         """
         handle = self._req_spans.pop(tix.uid, None)
         if handle is None:
@@ -456,7 +466,11 @@ class ContinuousBatchingServer(_Serving):
                    n_tokens=len(tix.tokens),
                    doorbells=launches + tix.n_prefill_launches,
                    graph_launches=launches,
-                   payload=4 * len(tix.tokens))
+                   payload=4 * len(tix.tokens),
+                   prefill_device_s=sum(r.device_s for r in tix.launches
+                                        if not r.decode),
+                   decode_device_s=sum(r.device_s for r in tix.launches
+                                       if r.decode))
 
     def _on_first_token(self, tix: RequestTicket, tok0: int) -> None:
         """Prefill completed: record token 0, finish degenerate requests."""
@@ -567,11 +581,17 @@ class ContinuousBatchingServer(_Serving):
                 decodable.remove(slot)
             if not decodable:
                 return self.n_active > 0
-        with self.session.span("serve.decode_iter", active=self.n_active):
+        riders = [self._slot_tix[slot] for slot in decodable]
+        with self.session.span("serve.decode_iter",
+                               active=self.n_active) as span:
             blocks = self.kv.decode()               # [B, T] host sync
-            for slot in decodable:
-                tix = self._slot_tix[slot]
+            rec = self.kv.decoded(riders)
+            span.attrs.update(slots=len(riders), kv_tokens=rec.kv_tokens,
+                              device_s=rec.device_s,
+                              launch_latency_s=rec.launch_latency_s)
+            for slot, tix in zip(decodable, riders):
                 tix.n_launches += 1
+                tix.launches.append(rec)
                 budget = min(tix.request.max_new_tokens, tix.cap)
                 take = min(self.T, budget - len(tix.tokens))
                 tix.tokens.extend(int(t) for t in blocks[slot, :take])
